@@ -24,7 +24,22 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     each) beside their memory/compute bound, the plain version and a
     PyTorch yardstick where there is one;
  7. torch.profiler: device time by kernel over one warm LM trial at the
-    bundle shape and at the dense shape, and a warm solve's time per trial.
+    bundle shape and at the dense shape, and a warm solve's time per trial;
+ 8. the top-2 descriptor search kernel against its plain version on the
+    card: unmasked and masked, at 8,192 x 8,192 x 128 on uint8 descriptors
+    (bitwise equal), on float descriptors (within 1e-4 of sq1 + sq2) and at
+    ragged sizes;
+ 9. the `match_features` command, through the command runner, on a
+    synthetic dataset of 32 images x 8,192 features (4,096 true, 4,096
+    distractors; 496 pairs), with the kernel's launches read around it and
+    the written matches scored against the true correspondences;
+10. the WORDS matcher (the masked kernel) on an 8-image subset with words,
+    the whole command under torch.profiler for its device busy share;
+11. descriptor matching and RANSAC on the card against the CPU on 4 pairs,
+    the same random draws injected into both;
+12. the top-2 kernel's timings beside its bound, the plain version and one
+    eager PyTorch expression (addmm + topk), and a torch.profiler breakdown
+    of one pair's `match` (two searches and RANSAC).
 Then the card's name and power limit, one {"kernels": [...]} JSON line, and
 as the last line {"ok": true, "device": {...}}.
 """
@@ -46,6 +61,9 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}  # no tensor cores
 # Matrix products: f32 stays off the tensor cores (no TF32), f64 may use
 # them (H100 SXM data sheet: 67 TFLOP/s FP64 tensor core).
 PEAK_MMA_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+# uint8 inputs: the exact u8 x u8 -> s32 tensor-core product (H100 SXM data
+# sheet: 1,979 TOP/s INT8, dense), the card's rate for that type.
+PEAK_INT8_OPS = 1979e12
 # Floating-point operations per observation slot, counted from csrc/
 # (sin/cos/sqrt/div counted as one each): the forward chain and cost; the
 # forward chain with the 24 Jacobian entries; that plus the assembly's
@@ -56,6 +74,7 @@ FLOPS_RESJAC_OBS = 330
 FLOPS_ASSEMBLE_SLOT = 830
 FLOPS_BACKSUB_SLOT = 400
 REPO = os.path.dirname(os.path.abspath(__file__))
+_T0 = time.perf_counter()  # phase lines carry the seconds since start
 WORK = os.path.join(REPO, "build", "chip_smoke")
 
 LOSSES = ("TrivialLoss", "SoftLOneLoss", "CauchyLoss", "HuberLoss",
@@ -89,6 +108,9 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     "fused_back_substitute": (
         "opensfm_tpu_torch/csrc/ba_assemble.cu",
         "opensfm_tpu/ops/pallas_kernels/ba_assemble.py:429"),
+    "top2_sqdist": (
+        "opensfm_tpu_torch/csrc/top2.cu",
+        "opensfm_tpu/ops/pallas_kernels/top2.py:195"),
 }
 DENSE_KERNELS = ("fused_cost_dense", "fused_schur_assembly",
                  "fused_back_substitute")
@@ -100,6 +122,8 @@ def check(cond: bool, msg: str) -> None:
 
 
 def log(msg: str) -> None:
+    if msg.startswith("phase"):
+        msg += f"  [{time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -280,8 +304,9 @@ def check_dense_kernels(problem, dev="cuda"):
 def _wrappers():
     from opensfm_tpu_torch.ops.kernels import ba_assemble as A
     from opensfm_tpu_torch.ops.kernels import ba_resjac as K
+    from opensfm_tpu_torch.ops.kernels import top2 as T
 
-    return {name: getattr(K if hasattr(K, name) else A, name)
+    return {name: next(getattr(m, name) for m in (K, A, T) if hasattr(m, name))
             for name in KERNELS}
 
 
@@ -539,6 +564,21 @@ def time_kernels(problem):
     return rows
 
 
+def device_time(prof):
+    """(busy ms, count, [(ms, count, name)] largest first) of the device
+    activity (kernels and copies) in a torch.profiler trace, summed from its
+    raw events: parsing ~10^6 of them into key_averages() takes minutes."""
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        ms, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
+                  reverse=True)
+    return sum(r[0] for r in rows), sum(r[1] for r in rows), rows
+
+
 def profile_trial(problem, label):
     """Phase 7: device time by kernel over one warm LM trial (step + cost),
     f64, and a warm solve's time per trial."""
@@ -562,20 +602,13 @@ def profile_trial(problem, label):
         trial().item()
     wall = (time.perf_counter() - t0) * 1e3
 
-    def self_dev(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     # Device kernels only (the aten ops above them carry the same time).
-    rows = sorted((e for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")),
-                  key=self_dev, reverse=True)
-    busy = sum(self_dev(e) for e in rows) / 1e3
+    busy, count, rows = device_time(prof)
     log(f"  {label}: one LM trial (step + cost), f64, dense={dense}: host wall "
         f"{wall:.2f} ms under the profiler, device busy {busy:.2f} ms in "
-        f"{sum(e.count for e in rows)} kernels")
-    for e in rows[:14]:
-        log(f"    {self_dev(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        f"{count} kernels")
+    for ms, n, name in rows[:14]:
+        log(f"    {ms:9.3f} ms  x{n:<5d} {name[:90]}")
 
     # The whole solve again, warm: seconds per LM trial without profiler.
     reset_launches()
@@ -587,6 +620,345 @@ def profile_trial(problem, label):
     trials = n["fused_cost"] + n["fused_cost_dense"] - 1
     log(f"  {label}: warm bundle_adjust {wall:.3f} s, {res.iterations} accepted of "
         f"{trials} trials, {wall / max(trials, 1) * 1e3:.1f} ms per trial")
+
+
+# --------------------------------------------------------------------------
+# match_features: the top-2 descriptor search and the command
+# --------------------------------------------------------------------------
+
+MATCH_SHOTS = 32  # images of the matching dataset (496 pairs)
+MATCH_POINTS = 16384  # 3D points, each seen from its 8 nearest images
+MATCH_FEATURES = 8192  # per image: ~4,096 true, the rest distractors
+WORDS_IMAGES = 8  # the WORDS subset
+# Floor of the written matches' precision and recall against the true
+# correspondences.  The generator's descriptor noise (+-3 per byte, ~1,000
+# of squared distance) is far below the distance between unrelated uint8
+# descriptors (~1.4 M), and its image noise (5e-4) far below the RANSAC
+# thresholds (0.004), so a correct matcher loses almost nothing.
+MIN_PRECISION = 0.99
+MIN_RECALL = 0.95
+TOP2_FLOAT_TOL = 1e-4  # float descriptors: |dist - plain| / (sq1 + max sq2)
+
+
+def _top2_inputs(n, m, d, seed, dtype=torch.uint8, near=True):
+    """Random descriptors on the card; with `near`, half of the database
+    rows are noisy copies of query rows, so the best candidates are decided
+    by small gaps."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randint(0, 256, (n, d), generator=g, device="cuda",
+                      dtype=torch.int32)
+    b = torch.randint(0, 256, (m, d), generator=g, device="cuda",
+                      dtype=torch.int32)
+    if near:
+        k = min(n, m) // 2
+        noise = torch.randint(-3, 4, (k, d), generator=g, device="cuda",
+                              dtype=torch.int32)
+        b[:k] = torch.clamp(a[:k] + noise, 0, 255)
+    mask = torch.rand((n, m), generator=g, device="cuda") < 0.25
+    if dtype == torch.uint8:
+        return a.to(torch.uint8), b.to(torch.uint8), mask
+    return (torch.randn((n, d), generator=g, device="cuda"),
+            torch.randn((m, d), generator=g, device="cuda"), mask)
+
+
+def check_top2():
+    """Phase 8: the top-2 kernel against its plain version on the card.
+    Returns the worst absolute distance error (uint8: must be 0; float)."""
+    from opensfm_tpu_torch.ops.kernels import top2 as T
+
+    worst = {"uint8": 0.0, "float32": 0.0}  # max |kernel - plain| over cases
+    cases = [(8192, 8192, 128), (1000, 777, 129), (5, 3, 128),
+             (300, 4099, 128), (129, 1, 64)]
+    for n, m, d in cases:
+        for dtype in (torch.uint8, torch.float32):
+            a, b, mask = _top2_inputs(n, m, d, seed=n + m + d, dtype=dtype)
+            for n2 in (m, max(m - 37, 0)):
+                for msk in (None, mask):
+                    got = T.top2_sqdist(a, b, n2, msk)
+                    want = T.top2_sqdist_plain(a, b, n2, msk)
+                    again = T.top2_sqdist(a, b, n2, msk)
+                    torch.cuda.synchronize()
+                    tag = (f"{n}x{m}x{d} {str(dtype)[6:]} n2={n2} "
+                           f"{'masked' if msk is not None else 'plain'}")
+                    check(torch.equal(got[0], again[0])
+                          and torch.equal(got[1], again[1]),
+                          f"top2 deterministic ({tag})")
+                    fin = torch.isfinite(want[1])
+                    check(torch.equal(torch.isfinite(got[1]), fin),
+                          f"top2 inf pattern ({tag})")
+                    err = (got[1] - want[1]).abs()[fin]
+                    if dtype == torch.uint8:
+                        e8 = float(err.max()) if err.numel() else 0.0
+                        worst["uint8"] = max(worst["uint8"], e8)
+                        check(e8 == 0.0 and torch.equal(got[1], want[1]),
+                              f"top2 distances bitwise, err {e8} ({tag})")
+                        check(torch.equal(got[0], want[0]),
+                              f"top2 indices bitwise ({tag})")
+                        continue
+                    af, bf = a.float(), b[:max(n2, 1)].float()
+                    scale = ((af * af).sum(1, keepdim=True)
+                             + (bf * bf).sum(1).max()).expand_as(fin)
+                    rel = float((err / scale[fin]).max()) if err.numel() else 0.0
+                    check(rel <= TOP2_FLOAT_TOL, f"top2 float rel {rel:.3g} "
+                          f"({tag})")
+                    worst["float32"] = max(worst["float32"], float(err.max())
+                                           if err.numel() else 0.0)
+                    gap = (want[1][:, 1] - want[1][:, 0]) > \
+                        TOP2_FLOAT_TOL * scale[:, 0]
+                    check(torch.equal(got[0][gap], want[0][gap]),
+                          f"top2 float indices where the gap is clear ({tag})")
+        log(f"  {n} x {m} x {d}: uint8 bitwise, float within "
+            f"{TOP2_FLOAT_TOL:g}, unmasked and masked")
+    # Ties: the lowest column wins and the second distance equals the first.
+    a = torch.zeros((3, 128), dtype=torch.uint8, device="cuda")
+    b = torch.full((3000, 128), 9, dtype=torch.uint8, device="cuda")
+    b[2100] = 0
+    b[2900] = 0
+    idx, dist = T.top2_sqdist(a, b, 3000)
+    check(idx[:, 0].tolist() == [2100] * 3 and float(dist.abs().max()) == 0,
+          "top2 ties go to the lowest column with d2 == d1")
+    return worst
+
+
+def write_matching_dataset(path, **kw):
+    import synthetic_bundle as sb
+
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    tracks = sb.write_matching_dataset(
+        path, n_shots=MATCH_SHOTS, n_points=MATCH_POINTS, track_window=8,
+        features_per_image=MATCH_FEATURES, seed=5, **kw)
+    log(f"  dataset written in {time.perf_counter() - t0:.1f} s: "
+        f"{MATCH_SHOTS} images x {MATCH_FEATURES} features")
+    return tracks
+
+
+def _timed(owner, name, acc):
+    """Wraps owner.name to add its wall time to acc[name]; returns the
+    original.  The wrapped calls end in host copies of their results, so
+    the host clock measures the device work too."""
+    fn = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(owner, name, wrapper)
+    return fn
+
+
+def run_match_command(path, tracks, label, n_images, trace=False):
+    """Runs `match_features` on the card through the command runner and
+    scores the written matches; returns (top2 launches, scores, wall,
+    seconds by stage: feature IO, descriptor matching with its IO, RANSAC,
+    saving the matches).  With `trace`, the whole command runs under
+    torch.profiler (device activity only) and the stages also hold the
+    device busy seconds over its wall."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import synthetic_bundle as sb
+    from opensfm_tpu_torch import matching
+    from opensfm_tpu_torch.commands import command_runner, opensfm_commands
+    from opensfm_tpu_torch.dataset import DataSet
+    from opensfm_tpu_torch.ops.kernels import top2 as T
+
+    stages = {}
+    wrapped = [(DataSet, "load_features"), (DataSet, "save_matches"),
+               (matching, "_match_descriptors_impl"),
+               (matching, "robust_match")]
+    originals = [_timed(owner, name, stages) for owner, name in wrapped]
+    prof = profile(activities=[ProfilerActivity.CUDA]) if trace else \
+        contextlib.nullcontext()
+    reset_launches()
+    try:
+        with prof:
+            t0 = time.perf_counter()
+            pairs = command_runner(opensfm_commands,
+                                   argv=["match_features", path, "--device",
+                                         "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for (owner, name), fn in zip(wrapped, originals):
+            setattr(owner, name, fn)
+    if trace:
+        t1 = time.perf_counter()
+        busy_ms, n_dev, rows = device_time(prof)
+        check(n_dev > 0, f"{label}: the trace holds device activity")
+        stages["device_busy"] = busy = busy_ms / 1e3
+        log(f"  {label} under the profiler (device activity): {wall:.2f} s "
+            f"of wall, device busy {busy:.3f} s ({100 * busy / wall:.2f} %) "
+            f"in {n_dev} kernels and copies (read in "
+            f"{time.perf_counter() - t1:.1f} s)")
+        for ms, n, name in rows[:8]:
+            log(f"    {ms:10.3f} ms  x{n:<7d} {name[:80]}")
+    launches_top2 = T.top2_sqdist.launches
+    n_pairs = n_images * (n_images - 1) // 2
+    check(len(pairs) == n_pairs, f"{label}: {len(pairs)} pairs matched")
+    check(launches_top2 == 2 * n_pairs,
+          f"{label}: {launches_top2} top2 launches, two per pair")
+    data = DataSet(path)
+    precision, recall, total = sb.match_scores(data, tracks)
+    survived = sum(1 for m in pairs.values() if len(m))
+    log(f"  {label}: {wall:.2f} s, {n_pairs} pairs, {survived} with robust "
+        f"matches, {total} matches, precision {precision:.5f}, recall "
+        f"{recall:.5f}; top2 launches {launches_top2}; seconds in "
+        f"load_features {stages.get('load_features', 0):.2f}, descriptor "
+        f"matching (with its loads) "
+        f"{stages.get('_match_descriptors_impl', 0):.2f}, RANSAC "
+        f"{stages.get('robust_match', 0):.2f}, save_matches "
+        f"{stages.get('save_matches', 0):.2f}")
+    check(precision >= MIN_PRECISION, f"{label}: precision {precision:.4f}")
+    check(recall >= MIN_RECALL, f"{label}: recall {recall:.4f}")
+    report = json.loads(data.load_report("matches.json"))
+    check(report["num_pairs"] == n_pairs, f"{label}: report pairs")
+    return launches_top2, (precision, recall, total, survived), wall, stages
+
+
+def _jaccard(a, b) -> float:
+    a, b = set(map(int, a)), set(map(int, b))
+    return len(a & b) / max(len(a | b), 1)
+
+
+def run_match_vs_cpu(path, n_pairs=4):
+    """Phase 11: the descriptor matches and RANSAC of a few pairs on the card
+    and on the CPU, the same draws (from one CPU generator) injected into
+    both."""
+    from opensfm_tpu_torch import feature_loader, matching
+    from opensfm_tpu_torch.dataset import DataSet
+    from opensfm_tpu_torch.robust import ransac
+
+    data = DataSet(path)
+    cam = data.load_camera_models()["synthetic_camera"]
+    images = data.images()
+    thr = data.config["robust_matching_calib_threshold"]
+    for j in range(1, n_pairs + 1):
+        im1, im2 = images[0], images[j]
+        desc = {}
+        for dev in ("cuda", "cpu"):
+            desc[dev] = matching._match_descriptors_impl(
+                im1, im2, cam, cam, data, data.config,
+                device=torch.device(dev))[2]
+        check(np.array_equal(desc["cuda"], desc["cpu"]),
+              f"{im1}-{im2}: card and CPU descriptor matches identical")
+        p1 = feature_loader.instance.load_all_data(data, im1, True).points
+        p2 = feature_loader.instance.load_all_data(data, im2, True).points
+        m = desc["cpu"]
+        b1 = cam.bearings_many(p1[m[:, 0], :2])
+        b2 = cam.bearings_many(p2[m[:, 1], :2])
+        n = len(m)
+        n_pad = max(64, 1 << int(n - 1).bit_length())
+        mask = torch.zeros(n_pad, dtype=torch.bool)
+        mask[:n] = True
+        k = ransac.CHUNK
+        samples = torch.cat([ransac.draw_samples(99, ci, n_pad, k, 5, mask)
+                             for ci in range(2)]).numpy()
+        res = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res[dev] = ransac.ransac_essential(b1, b2, thr, iterations=1000,
+                                               device=dev, samples=samples)
+            res[dev + "_s"] = time.perf_counter() - t0
+        jac = _jaccard(res["cuda"].inliers_indices, res["cpu"].inliers_indices)
+        log(f"  {im1}-{im2}: {n} descriptor matches (identical); inliers "
+            f"card {res['cuda'].num_inliers}, CPU {res['cpu'].num_inliers}, "
+            f"Jaccard {jac:.5f}; RANSAC card {res['cuda_s']:.3f} s, CPU "
+            f"{res['cpu_s']:.3f} s")
+        check(jac >= 0.99, f"{im1}-{im2}: inlier Jaccard {jac:.4f}")
+    feature_loader.instance.clear_cache()
+
+
+def time_top2(rows):
+    """Phase 12: the top-2 kernel at the path's shape, 8,192 x 8,192 x 128
+    uint8, unmasked and masked, beside its bound, its plain version and one
+    eager PyTorch expression (addmm for the distances, then topk)."""
+    from opensfm_tpu_torch.ops.kernels import top2 as T
+
+    n = m = MATCH_FEATURES
+    d = 128
+    a, b, mask = _top2_inputs(n, m, d, seed=21)
+
+    def library():
+        af, bf = a.float(), b.float()
+        sq = (bf * bf).sum(1)
+        dist = torch.addmm((af * af).sum(1, keepdim=True) + sq, af, bf.T,
+                           beta=1.0, alpha=-2.0)
+        return torch.topk(dist, 2, dim=1, largest=False)
+
+    def library_masked():
+        af, bf = a.float(), b.float()
+        dist = torch.addmm((af * af).sum(1, keepdim=True) + (bf * bf).sum(1),
+                           af, bf.T, beta=1.0, alpha=-2.0)
+        dist.masked_fill_(~mask, float("inf"))
+        return torch.topk(dist, 2, dim=1, largest=False)
+
+    flops = 2 * n * m * d
+    out_bytes = n * (2 * 4 + 4)
+    for key, msk, lib in (("unmasked", None, library),
+                          ("masked", mask, library_masked)):
+        nbytes = (n + m) * d + out_bytes + (n * m if msk is not None else 0)
+        ms = _time_ms(lambda: T.top2_sqdist(a, b, m, msk))
+        ms_call = _time_ms(lambda: T.top2_sqdist(a, b, m, msk), backlog=False)
+        ms_plain = _time_ms(lambda: T.top2_sqdist_plain(a, b, m, msk))
+        ms_lib = _time_ms(lib)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_INT8_OPS * 1e3  # uint8 descriptors
+        rows.setdefault("top2_sqdist", {})[key] = dict(
+            ms=ms, call_ms=ms_call, plain_ms=ms_plain, library_ms=ms_lib,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=nbytes, flops=flops)
+        log(f"  top2_sqdist {key} {n}x{m}x{d} uint8: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s; call with host launch "
+            f"{ms_call:.4f} ms), bound {max(t_bytes, t_ops):.4f} ms "
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), plain "
+            f"{ms_plain:.4f} ms, addmm + topk {ms_lib:.4f} ms")
+
+
+def profile_match_pair(path):
+    """Phase 12: torch.profiler over one warm pair's `match` on the card
+    (the two searches and RANSAC): device time by kernel, host wall, and
+    the search and RANSAC shares of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from opensfm_tpu_torch import matching
+    from opensfm_tpu_torch.dataset import DataSet
+
+    data = DataSet(path)
+    cam = data.load_camera_models()["synthetic_camera"]
+    im1, im2 = data.images()[0], data.images()[1]
+    dev = torch.device("cuda")
+    matching.match(im1, im2, cam, cam, data, data.config, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p1, p2, m, _ = matching._match_descriptors_impl(im1, im2, cam, cam, data,
+                                                    data.config, device=dev)
+    t_desc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = matching.robust_match(p1, p2, cam, cam, m, data.config, device=dev)
+    t_rob = time.perf_counter() - t0
+    log(f"  one pair ({im1}, {im2}), warm, no profiler: descriptor matching "
+        f"{t_desc * 1e3:.1f} ms ({len(m)} matches), RANSAC "
+        f"{t_rob * 1e3:.1f} ms ({len(r)} inliers)")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        matching.match(im1, im2, cam, cam, data, data.config, device=dev)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    busy, count, rows = device_time(prof)
+    log(f"  one pair's match under the profiler: host wall {wall:.1f} ms, "
+        f"device busy {busy:.2f} ms in {count} kernels")
+    for ms, n, name in rows[:12]:
+        log(f"    {ms:9.3f} ms  x{n:<6d} {name[:90]}")
+    return dict(desc_ms=t_desc * 1e3, ransac_ms=t_rob * 1e3,
+                profiled_wall_ms=wall, device_busy_ms=busy)
 
 
 def nvidia_smi() -> str:
@@ -607,6 +979,7 @@ def main() -> int:
     from opensfm_tpu_torch.ops.kernels import _build
     from opensfm_tpu_torch.ops.kernels import ba_assemble as A
     from opensfm_tpu_torch.ops.kernels import ba_resjac as K
+    from opensfm_tpu_torch.ops.kernels import top2 as T
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -617,7 +990,7 @@ def main() -> int:
 
     log("phase 1: build (one nvcc per source, all at once)")
     t0 = time.perf_counter()
-    libs = _build.build_all([K.SOURCE, A.SOURCE])
+    libs = _build.build_all([K.SOURCE, A.SOURCE, T.SOURCE])
     log(f"  built in {time.perf_counter() - t0:.1f} s")
     for source, lib in libs.items():
         secs, ptxas = _build.BUILD_LOG[source]
@@ -657,12 +1030,61 @@ def main() -> int:
     profile_trial(big, "bundle 256 x 32768 x K=8")
     profile_trial(dense64, "dense 64 x 8192")
 
+    log("phase 8: top-2 search kernel vs plain on the card")
+    t0 = time.perf_counter()
+    worst["top2_sqdist"] = check_top2()
+    log(f"  done in {time.perf_counter() - t0:.1f} s; worst abs err "
+        f"{worst['top2_sqdist']}")
+
+    log(f"phase 9: match_features command, {MATCH_SHOTS} images x "
+        f"{MATCH_FEATURES} features")
+    match_path = os.path.join(WORK, "match_32x8192")
+    tracks = write_matching_dataset(match_path, words=True)
+    match_launches, scores, match_wall, stages = run_match_command(
+        match_path, tracks, "match_features", MATCH_SHOTS)
+
+    log(f"phase 10: WORDS matcher, {WORDS_IMAGES}-image subset")
+    words_path = os.path.join(WORK, "match_words")
+    sb.subset_dataset(match_path, words_path,
+                      [sb.shot_id(i) for i in range(WORDS_IMAGES)],
+                      {"matcher_type": "WORDS"})
+    words_launches, _, words_wall, words_stages = run_match_command(
+        words_path, tracks, "WORDS", WORDS_IMAGES, trace=True)
+
+    log("phase 11: card vs CPU on 4 pairs, the same draws injected")
+    t0 = time.perf_counter()
+    run_match_vs_cpu(match_path)
+    log(f"  done in {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 12: top-2 timings and one pair's profile ({card})")
+    time_top2(rows)
+    pair_profile = profile_match_pair(match_path)
+
     paths = {name: ("bundle command 256x32768xK=8, f64", counts)
              for name in ("fused_residual_jacobian", "fused_cost")}
     paths.update({name: ("bundle_adjust dense 64x8192, f64", dense_counts)
                   for name in DENSE_KERNELS})
     kernels = []
     for name, (source, replaces) in KERNELS.items():
+        if name == "top2_sqdist":
+            un, ma = rows[name]["unmasked"], rows[name]["masked"]
+            kernels.append(dict(
+                name=name, route="cuda", source=source, replaces=replaces,
+                launches=match_launches,
+                path=f"match_features {MATCH_SHOTS}x{MATCH_FEATURES}, uint8",
+                max_abs_err=worst[name]["uint8"], ms=un["ms"],
+                plain_ms=un["plain_ms"], bound_ms=un["bound_ms"],
+                bound_by=un["bound_by"], library_ms=un["library_ms"],
+                dtype="uint8", max_abs_err_f32=worst[name]["float32"],
+                ms_masked=ma["ms"], plain_ms_masked=ma["plain_ms"],
+                bound_ms_masked=ma["bound_ms"],
+                library_ms_masked=ma["library_ms"],
+                launches_words=words_launches, words_command_s=words_wall,
+                words_command_stage_s=words_stages, command_s=match_wall,
+                command_stage_s=stages, precision=scores[0],
+                recall=scores[1], **pair_profile,
+            ))
+            continue
         f64, f32 = rows[name]["float64"], rows[name]["float32"]
         path, n = paths[name]
         kernels.append(dict(

@@ -1,2 +1,3 @@
 """Library-level entry points, one per pipeline command (the reference's
-`opensfm/actions/`); this slice of the port has `bundle`."""
+`opensfm/actions/`); the port has `match_features` and
+`bundle` so far."""

@@ -1,7 +1,8 @@
 """Small dense linear algebra on torch tensors.
 
-Port of `opensfm_tpu.ops.linalg` for what the bundle path uses: the SPD
-solve by Cholesky (the damped normal equations) and the closed-form 3x3
+Port of `opensfm_tpu.ops.linalg` for what the bundle and matching paths
+use: the SPD solve by Cholesky (the damped normal equations), the small
+general solve by Gauss-Jordan (the 5-point solver) and the closed-form 3x3
 inverse, determinant and solve (per-point Schur blocks, triangulation).
 """
 
@@ -24,6 +25,40 @@ def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     x = torch.cholesky_solve(b, L)
     bad = (info != 0)[..., None, None]
     x = torch.where(bad, torch.full_like(x, float("nan")), x)
+    return x[..., 0] if vec else x
+
+
+def solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve general small n x n systems A x = b (batched, any dtype).
+
+    The reference's unrolled Gauss-Jordan elimination with partial pivoting,
+    op for op: a singular system gives inf/NaN instead of raising (as
+    `torch.linalg.solve` would), and callers keep their isfinite guards.
+    A: [..., n, n]; b: [..., n] or [..., n, k]."""
+    n = A.shape[-1]
+    vec = b.dim() == A.dim() - 1
+    if vec:
+        b = b[..., None]
+    b = b.to(A.dtype)
+    batch = torch.broadcast_shapes(A.shape[:-2], b.shape[:-2])
+    M = torch.cat([A.expand(batch + A.shape[-2:]),
+                   b.expand(batch + b.shape[-2:])], dim=-1)  # [..., n, n+k]
+    rows = torch.arange(n, device=A.device)
+    for i in range(n):
+        # Partial pivot: strongest remaining row in column i.
+        col = torch.abs(M[..., :, i])
+        col = torch.where(rows >= i, col, torch.full_like(col, -float("inf")))
+        p = torch.argmax(col, dim=-1)  # [...]
+        perm = torch.where(rows == i, p[..., None],
+                           torch.where(rows == p[..., None], i, rows))
+        M = torch.take_along_dim(M, perm[..., :, None], dim=-2)
+        # Normalize the pivot row, eliminate every other row (Gauss-Jordan:
+        # the left block becomes the identity and the right block is x).
+        row_i = M[..., i:i + 1, :] / M[..., i:i + 1, i:i + 1]
+        factors = M[..., :, i:i + 1]
+        elim = (rows != i)[:, None]
+        M = torch.where(elim, M - factors * row_i, row_i)
+    x = M[..., n:]
     return x[..., 0] if vec else x
 
 

@@ -7,12 +7,18 @@ perturbed.  It returns the port's `BAProblem` with the same arrays for the
 same arguments.  `write_dataset` turns such a problem into a dataset
 directory (`reconstruction.json`, `tracks.csv`, `camera_models.json`,
 `config.yaml`) whose `bundle` command solves the same problem.
+`write_matching_dataset` writes the input of `match_features` on the same
+circle of shots: features with uint8 descriptors (one random descriptor per
+3D point plus small noise per observation, padded with random distractors),
+optional words, EXIF with GPS and the camera; it returns which point each
+feature observes, and `match_scores` grades written matches against it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+import shutil
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import yaml
@@ -23,18 +29,12 @@ from opensfm_tpu_torch.geometry import cameras as cl
 from opensfm_tpu_torch.geometry.pose import Pose
 
 NOISE = 0.0005  # image noise of the synthetic observations (normalized units)
+CAMERA = (-0.05, 0.002, 0.85)  # k1, k2, focal of the synthetic camera
 
 
-def make_problem(n_shots=16, n_points=512, seed=0, track_window=None):
-    """A synthetic circle-scene BA problem as flat arrays.
-
-    `track_window=None` observes every point in every shot (dense, shot-major
-    observations).  An integer K observes each point only from its K
-    angularly-nearest shots (point-major observations, mean track length
-    K)."""
-    rng = np.random.default_rng(seed)
-    cam_params = np.array([[-0.05, 0.002, 0.85]])
-    points = rng.uniform(-4, 4, (n_points, 3))
+def circle_shots(n_shots: int) -> np.ndarray:
+    """[n_shots, 6] (rotation vector, translation) of shots evenly spaced on
+    a circle of radius 10 around the origin, each looking at the origin."""
     insts = []
     for i in range(n_shots):
         ang = 2 * np.pi * i / n_shots
@@ -46,7 +46,30 @@ def make_problem(n_shots=16, n_points=512, seed=0, track_window=None):
         pose.set_rotation_matrix(np.stack([x, np.cross(z, x), z]))
         pose.set_origin(origin)
         insts.append(np.concatenate([pose.rotation, pose.translation]))
-    insts = np.array(insts)
+    return np.array(insts)
+
+
+def nearest_shots(points: np.ndarray, n_shots: int, k: int) -> np.ndarray:
+    """[NP, k] the k angularly-nearest shots of each point: on an evenly
+    spaced circle they are a contiguous index window around the closest."""
+    pt_ang = np.arctan2(points[:, 1], points[:, 0])
+    step_ang = 2 * np.pi / n_shots
+    j0 = np.round(pt_ang / step_ang).astype(np.int64) % n_shots
+    return (j0[:, None] + (np.arange(k, dtype=np.int64) - k // 2)[None, :]) \
+        % n_shots
+
+
+def make_problem(n_shots=16, n_points=512, seed=0, track_window=None):
+    """A synthetic circle-scene BA problem as flat arrays.
+
+    `track_window=None` observes every point in every shot (dense, shot-major
+    observations).  An integer K observes each point only from its K
+    angularly-nearest shots (point-major observations, mean track length
+    K)."""
+    rng = np.random.default_rng(seed)
+    cam_params = np.array([CAMERA])
+    points = rng.uniform(-4, 4, (n_points, 3))
+    insts = circle_shots(n_shots)
 
     if track_window is None:
         uv_per_shot = []
@@ -66,14 +89,7 @@ def make_problem(n_shots=16, n_points=512, seed=0, track_window=None):
         )
     else:
         K = int(track_window)
-        # The K nearest shots of an evenly spaced circle are a contiguous
-        # index window around the closest one.
-        pt_ang = np.arctan2(points[:, 1], points[:, 0])
-        step_ang = 2 * np.pi / n_shots
-        j0 = np.round(pt_ang / step_ang).astype(np.int64) % n_shots
-        near = (
-            j0[:, None] + (np.arange(K, dtype=np.int64) - K // 2)[None, :]
-        ) % n_shots  # [NP, K]
+        near = nearest_shots(points, n_shots, K)  # [NP, K]
         obs_point = np.repeat(np.arange(n_points, dtype=np.int64), K)
         obs_inst = near.reshape(-1).astype(np.int64)
         O = n_points * K
@@ -180,3 +196,146 @@ def reprojection_rms(reconstruction: types.Reconstruction,
         sq += float(np.sum(err * err))
         n += err.size
     return float(np.sqrt(sq / max(n, 1)))
+
+
+# A GPS origin for the synthetic scenes (any place works; topocentric
+# metres around it are what the pair selection reads).
+GPS_ORIGIN = (52.519, 13.401, 30.0)
+DESCRIPTOR_NOISE = 3  # per byte of an observed descriptor, uniform integers
+WORDS_VOCABULARY = 4096  # words of the synthetic vocabulary
+
+
+def write_matching_dataset(path: str, n_shots: int = 32,
+                           n_points: int = 16384, track_window: int = 8,
+                           features_per_image: int = 8192, seed: int = 0,
+                           undistorted: bool = False, words: bool = False,
+                           config: Optional[Dict[str, Any]] = None
+                           ) -> Dict[str, np.ndarray]:
+    """Write the input of `match_features` as a dataset directory and return
+    {image: [features] id of the 3D point each feature observes, -1 for a
+    distractor}.
+
+    Shots and points as `make_problem` places them (the circle of radius 10,
+    points uniform in [-4, 4]^3, each seen from its `track_window`
+    angularly-nearest shots), the camera (k1, k2, focal) = CAMERA, or
+    k1 = k2 = 0 with `undistorted`.  Every point has a random uint8
+    descriptor of 128 bytes; an observation is that descriptor plus integer
+    noise in [-DESCRIPTOR_NOISE, DESCRIPTOR_NOISE], clipped, at the
+    projected position plus NOISE.  Each image is padded with random
+    distractor features up to `features_per_image` and its features are
+    shuffled.  Writes `features/*.features.npz` (normalized x, y, size,
+    angle; uint8 descriptors), `exif/*.exif` with GPS, `camera_models.json`,
+    `image_list.txt`, `config.yaml` and, with `words`, `*.words.npz`
+    holding 20 words per feature, the first one shared by all observations
+    of a point (out of WORDS_VOCABULARY words)."""
+    from opensfm_tpu_torch import geo
+    from opensfm_tpu_torch.dataset import DataSet
+    from opensfm_tpu_torch.features import FeaturesData
+
+    rng = np.random.default_rng(seed)
+    points = rng.uniform(-4, 4, (n_points, 3))
+    insts = circle_shots(n_shots)
+    k1, k2, focal = CAMERA
+    if undistorted:
+        k1 = k2 = 0.0
+    near = nearest_shots(points, n_shots, track_window)
+    point_desc = rng.integers(0, 256, (n_points, 128), dtype=np.uint8)
+    point_word = rng.integers(0, WORDS_VOCABULARY, n_points)
+
+    os.makedirs(path, exist_ok=True)
+    cfg = {"feature_type": "HAHOG", "hahog_normalize_to_uchar": True}
+    cfg.update(config or {})
+    with open(os.path.join(path, "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f)
+    images = [shot_id(i) for i in range(n_shots)]
+    with open(os.path.join(path, "image_list.txt"), "w") as f:
+        f.write("".join(f"images/{im}\n" for im in images))
+    data = DataSet(path)
+    camera = cl.Camera.create_perspective(focal, k1, k2)
+    camera.id = "synthetic_camera"
+    camera.width = camera.height = 1000
+    data.save_camera_models({camera.id: camera})
+    ref = geo.TopocentricConverter(*GPS_ORIGIN)
+
+    tracks = {}
+    for i, image in enumerate(images):
+        pose = Pose(insts[i, :3], insts[i, 3:])
+        seen = np.flatnonzero((near == i).any(axis=1))
+        pc = points[seen] @ pose.get_rotation_matrix().T + pose.translation
+        uv = cl.project("perspective", pc, np.array([k1, k2, focal]), xp=np)
+        uv = uv + rng.normal(0, NOISE, uv.shape)
+        noise = rng.integers(-DESCRIPTOR_NOISE, DESCRIPTOR_NOISE + 1,
+                             (len(seen), 128))
+        desc = np.clip(point_desc[seen].astype(np.int64) + noise, 0, 255)
+        n_extra = max(0, features_per_image - len(seen))
+        desc = np.concatenate([
+            desc.astype(np.uint8),
+            rng.integers(0, 256, (n_extra, 128), dtype=np.uint8)])
+        uv = np.concatenate([uv, rng.uniform(-0.5, 0.5, (n_extra, 2))])
+        ids = np.concatenate([seen, np.full(n_extra, -1)])
+        order = rng.permutation(len(ids))
+        n_feat = len(ids)
+        pts = np.column_stack([
+            uv, rng.uniform(0.002, 0.02, n_feat),
+            rng.uniform(0.0, 360.0, n_feat)])[order]
+        data.save_features(image, FeaturesData(
+            pts, desc[order], np.full((n_feat, 3), 128, dtype=np.uint8)))
+        tracks[image] = ids[order]
+        if words:
+            w = rng.integers(0, WORDS_VOCABULARY, (n_feat, 20))
+            true = ids >= 0
+            w[true, 0] = point_word[ids[true]]
+            data.save_words(image, w[order])
+        lat, lon, alt = ref.to_lla(*pose.get_origin())
+        data.save_exif(image, {
+            "camera": camera.id, "width": 1000, "height": 1000,
+            "projection_type": "perspective", "focal_ratio": focal,
+            "orientation": 1, "capture_time": float(i),
+            "gps": {"latitude": lat, "longitude": lon, "altitude": alt,
+                    "dop": 5.0},
+        })
+    return tracks
+
+
+def subset_dataset(path: str, out: str, images: List[str],
+                   config: Optional[Dict[str, Any]] = None) -> None:
+    """A copy of the matching dataset at `path` restricted to `images`,
+    with `config` over its config.yaml."""
+    shutil.rmtree(out, ignore_errors=True)
+    for sub in ("exif", "features"):
+        os.makedirs(os.path.join(out, sub))
+    with open(os.path.join(path, "config.yaml")) as f:
+        cfg = yaml.safe_load(f) or {}
+    cfg.update(config or {})
+    with open(os.path.join(out, "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f)
+    shutil.copy(os.path.join(path, "camera_models.json"), out)
+    with open(os.path.join(out, "image_list.txt"), "w") as f:
+        f.write("".join(f"images/{im}\n" for im in images))
+    for im in images:
+        shutil.copy(os.path.join(path, "exif", im + ".exif"),
+                    os.path.join(out, "exif"))
+        for suffix in (".features.npz", ".words.npz"):
+            src = os.path.join(path, "features", im + suffix)
+            if os.path.isfile(src):
+                shutil.copy(src, os.path.join(out, "features"))
+
+
+def match_scores(data, tracks: Dict[str, np.ndarray]
+                 ) -> Tuple[float, float, int]:
+    """(precision, recall, matches) of the matches written in dataset
+    `data`: a match is right when both features observe one point; recall
+    counts right matches over the points each matched pair shares."""
+    right = total = shared = 0
+    for im1 in data.images():
+        if not data.matches_exists(im1):
+            continue
+        for im2, m in data.load_matches(im1).items():
+            m = np.asarray(m, dtype=np.int64).reshape(-1, 2)
+            a, b = tracks[im1][m[:, 0]], tracks[im2][m[:, 1]]
+            right += int(np.sum((a >= 0) & (a == b)))
+            total += len(m)
+            common = np.intersect1d(tracks[im1][tracks[im1] >= 0],
+                                    tracks[im2][tracks[im2] >= 0])
+            shared += len(common)
+    return right / max(total, 1), right / max(shared, 1), total

@@ -22,8 +22,15 @@ for name in names:
 import synthetic_bundle, chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "opensfm_tpu"))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+matching_path = {
+    "opensfm_tpu_torch." + m for m in (
+        "ops.kernels.top2", "ops.matching", "feature_loading",
+        "feature_loader", "geometry.angles", "pairs_selection",
+        "geometry.polynomial", "geometry.essential", "robust.ransac",
+        "matching", "actions.match_features", "commands.match_features")}
+missing = sorted(matching_path - set(names))
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """
 
 
@@ -84,3 +91,18 @@ def test_cli_without_device_raises(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert (tmp_path / "reconstruction.json").read_bytes() != before
+
+
+def test_match_features_without_device_raises(tmp_path):
+    _no_cuda()
+    import synthetic_bundle as sb
+    from opensfm_tpu_torch.actions import match_features
+    from opensfm_tpu_torch.dataset import DataSet
+
+    sb.write_matching_dataset(str(tmp_path), n_shots=3, n_points=60,
+                              track_window=2, features_per_image=60)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        match_features.run_dataset(DataSet(str(tmp_path)))
+    assert not (tmp_path / "matches").exists()
+    match_features.run_dataset(DataSet(str(tmp_path)), device="cpu")
+    assert (tmp_path / "reports" / "matches.json").exists()
