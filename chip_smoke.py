@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
  1. build the CUDA kernels of opensfm_tpu_torch/csrc/ with nvcc (sm_90a),
-    one nvcc per source, all at once;
+    one nvcc per source, all at once; print ptxas's registers and spills
+    (the tensor-core top-2 kernels must not spill);
  2. hold every kernel against its plain PyTorch version on the card, in f32
     and f64, for all five losses: the residual/Jacobian and cost kernels in
     the canonical T=8 layout at O = 262,144 and in a ragged gathered layout,
@@ -27,8 +28,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     bundle shape and at the dense shape, and a warm solve's time per trial;
  8. the top-2 descriptor search kernel against its plain version on the
     card: unmasked and masked, at 8,192 x 8,192 x 128 on uint8 descriptors
-    (bitwise equal), on float descriptors (within 1e-4 of sq1 + sq2) and at
-    ragged sizes;
+    (the tensor-core kernel, bitwise equal), on uint8 ones of width 200
+    and 258 (the FP32 kernel, bitwise equal), on float descriptors and
+    uint8 ones wider than 258 (the FP32 kernel, within 1e-4 of
+    sq1 + sq2), at ragged sizes and with fewer than 16 rows; and its
+    device launches per call at 8,192^2 (a trace of 20 calls, which must
+    read the wrapper's 2);
  9. the `match_features` command, through the command runner, on a
     synthetic dataset of 32 images x 8,192 features (4,096 true, 4,096
     distractors; 496 pairs), with the kernel's launches read around it and
@@ -37,9 +42,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     the whole command under torch.profiler for its device busy share;
 11. descriptor matching and RANSAC on the card against the CPU on 4 pairs,
     the same random draws injected into both;
-12. the top-2 kernel's timings beside its bound, the plain version and one
-    eager PyTorch expression (addmm + topk), and a torch.profiler breakdown
-    of one pair's `match` (two searches and RANSAC).
+12. the top-2 kernel's timings beside its bound, the plain version and two
+    eager PyTorch expressions (addmm + topk in FP32; torch._int_mm + topk on
+    the descriptors shifted to int8), and a torch.profiler breakdown of
+    one pair's `match` (two searches and RANSAC);
+13. the dense-assembly ablation profiler (`python -m
+    opensfm_tpu_torch.tools.profile_kernel_variants`): each of its five
+    modes' kernels against its plain version at 64 x 8,192 (f32), then the
+    tool's timings beside each mode's bound.
 Then the card's name and power limit, one {"kernels": [...]} JSON line, and
 as the last line {"ok": true, "device": {...}}.
 """
@@ -111,6 +121,9 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     "top2_sqdist": (
         "opensfm_tpu_torch/csrc/top2.cu",
         "opensfm_tpu/ops/pallas_kernels/top2.py:195"),
+    "assembly_variant": (
+        "opensfm_tpu_torch/csrc/assembly_variants.cu",
+        "profile_kernel_variants.py:115"),
 }
 DENSE_KERNELS = ("fused_cost_dense", "fused_schur_assembly",
                  "fused_back_substitute")
@@ -302,11 +315,13 @@ def check_dense_kernels(problem, dev="cuda"):
 
 
 def _wrappers():
+    from opensfm_tpu_torch.ops.kernels import assembly_variants as V
     from opensfm_tpu_torch.ops.kernels import ba_assemble as A
     from opensfm_tpu_torch.ops.kernels import ba_resjac as K
     from opensfm_tpu_torch.ops.kernels import top2 as T
 
-    return {name: next(getattr(m, name) for m in (K, A, T) if hasattr(m, name))
+    return {name: next(getattr(m, name) for m in (K, A, T, V)
+                       if hasattr(m, name))
             for name in KERNELS}
 
 
@@ -411,29 +426,14 @@ def run_vs_cpu(make_problem, max_iterations: int = 3):
         check(rel <= 1e-8, f"{label}: final cost within 1e-8 relative")
 
 
-def _time_ms(fn, reps: int = 25, backlog: bool = True) -> float:
-    """Median of `reps` CUDA-event timings, the L2 flushed before each.
+def _time_ms(fn, backlog: bool = True) -> float:
+    """Median of 25 CUDA-event timings on the card, the L2 flushed before
+    each: the port's one timer (`time_ms` of the ablation profiler), so
+    every row of the kernels line is timed alike.  Without `backlog` the
+    time takes in the host's launch (the wrapper's Python checks)."""
+    from opensfm_tpu_torch.tools.profile_kernel_variants import time_ms
 
-    With `backlog`, a sleep kernel queued ahead of the first event keeps the
-    card busy while the host enqueues `fn`, so the events bracket device
-    time only; without it they also take in the host's time to launch (the
-    wrapper's Python checks), as a caller that waits on each call sees."""
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        if backlog:
-            torch.cuda._sleep(2_000_000)  # ~1 ms at the H100's clock
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    return time_ms(fn, torch.device("cuda"), backlog=backlog)
 
 
 def _yardstick(args, loss, with_jac: bool):
@@ -661,17 +661,41 @@ def _top2_inputs(n, m, d, seed, dtype=torch.uint8, near=True):
             torch.randn((m, d), generator=g, device="cuda"), mask)
 
 
+def top2_launches_per_call(a, b, msk):
+    """Device kernels per `top2_sqdist` call, from a trace of 20 calls (None
+    when the trace holds no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from opensfm_tpu_torch.ops.kernels import top2 as T
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            T.top2_sqdist(a, b, b.shape[0], msk)
+        torch.cuda.synchronize()
+    _, n_dev, _ = device_time(prof)
+    return n_dev / 20 if n_dev else None
+
+
 def check_top2():
     """Phase 8: the top-2 kernel against its plain version on the card.
-    Returns the worst absolute distance error (uint8: must be 0; float)."""
+    Returns the worst absolute distance error (uint8: must be 0; float) and
+    the launches per call at the path's shape, unmasked and masked (traced
+    here, before phase 10's long trace, after which the profiler may miss
+    events)."""
     from opensfm_tpu_torch.ops.kernels import top2 as T
 
     worst = {"uint8": 0.0, "float32": 0.0}  # max |kernel - plain| over cases
+    # Ragged N, M and D; N < 16 (part of one warp's rows); uint8 D = 200
+    # (the FP32 kernel, still bitwise) and D = 300 (the FP32 kernel, where
+    # products may round).
     cases = [(8192, 8192, 128), (1000, 777, 129), (5, 3, 128),
-             (300, 4099, 128), (129, 1, 64)]
+             (300, 4099, 128), (129, 1, 64), (9, 2000, 96), (513, 1500, 200),
+             (700, 900, 300)]
     for n, m, d in cases:
         for dtype in (torch.uint8, torch.float32):
             a, b, mask = _top2_inputs(n, m, d, seed=n + m + d, dtype=dtype)
+            exact = dtype == torch.uint8 and d <= T.U8_BITWISE_MAX_D
             for n2 in (m, max(m - 37, 0)):
                 for msk in (None, mask):
                     got = T.top2_sqdist(a, b, n2, msk)
@@ -687,7 +711,7 @@ def check_top2():
                     check(torch.equal(torch.isfinite(got[1]), fin),
                           f"top2 inf pattern ({tag})")
                     err = (got[1] - want[1]).abs()[fin]
-                    if dtype == torch.uint8:
+                    if exact:
                         e8 = float(err.max()) if err.numel() else 0.0
                         worst["uint8"] = max(worst["uint8"], e8)
                         check(e8 == 0.0 and torch.equal(got[1], want[1]),
@@ -707,7 +731,10 @@ def check_top2():
                         TOP2_FLOAT_TOL * scale[:, 0]
                     check(torch.equal(got[0][gap], want[0][gap]),
                           f"top2 float indices where the gap is clear ({tag})")
-        log(f"  {n} x {m} x {d}: uint8 bitwise, float within "
+        u8_txt = "bitwise" if d <= T.U8_BITWISE_MAX_D else \
+            f"within {TOP2_FLOAT_TOL:g}"
+        route = "tensor cores" if d <= T.U8_MAX_D else "FP32 route"
+        log(f"  {n} x {m} x {d}: uint8 {u8_txt} ({route}), float within "
             f"{TOP2_FLOAT_TOL:g}, unmasked and masked")
     # Ties: the lowest column wins and the second distance equals the first.
     a = torch.zeros((3, 128), dtype=torch.uint8, device="cuda")
@@ -717,7 +744,34 @@ def check_top2():
     idx, dist = T.top2_sqdist(a, b, 3000)
     check(idx[:, 0].tolist() == [2100] * 3 and float(dist.abs().max()) == 0,
           "top2 ties go to the lowest column with d2 == d1")
-    return worst
+    # Norms near 255^2 * 258: their float32 sum rounds above 2^24, which the
+    # FP32 kernel (the route of uint8 sets wider than U8_MAX_D) must round
+    # as the plain version does.
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a = 255 - torch.randint(0, 4, (600, 258), generator=g, device="cuda",
+                            dtype=torch.int32)
+    b = torch.cat([a[:300] ^ 1, 255 - torch.randint(
+        0, 4, (700, 258), generator=g, device="cuda", dtype=torch.int32)])
+    a, b = a.to(torch.uint8), b.to(torch.uint8)
+    check(float((a.float() ** 2).sum(1).min() * 2) > 2 ** 24,
+          "the wide case's norm sums exceed 2^24")
+    for msk in (None, torch.rand((600, 1000), generator=g, device="cuda")
+                < 0.5):
+        got = T.top2_sqdist(a, b, 1000, msk)
+        want = T.top2_sqdist_plain(a, b, 1000, msk)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              "top2 bitwise where the norms' float32 sum rounds")
+    a, b, mask = _top2_inputs(MATCH_FEATURES, MATCH_FEATURES, 128, seed=21)
+    splits, _ = T.split_columns(MATCH_FEATURES, MATCH_FEATURES)
+    expect = 1 if splits == 1 else 2  # the search, and the slice merge
+    per_call = {}
+    for key, msk in (("unmasked", None), ("masked", mask)):
+        per_call[key] = top2_launches_per_call(a, b, msk)
+        check(per_call[key] == expect,
+              f"top2 {key}: {per_call[key]} launches per call traced, "
+              f"{expect} expected")
+    log(f"  launches per call at {MATCH_FEATURES}^2 x 128: {per_call}")
+    return worst, per_call
 
 
 def write_matching_dataset(path, **kw):
@@ -873,7 +927,7 @@ def run_match_vs_cpu(path, n_pairs=4):
     feature_loader.instance.clear_cache()
 
 
-def time_top2(rows):
+def time_top2(rows, per_call):
     """Phase 12: the top-2 kernel at the path's shape, 8,192 x 8,192 x 128
     uint8, unmasked and masked, beside its bound, its plain version and one
     eager PyTorch expression (addmm for the distances, then topk)."""
@@ -897,6 +951,25 @@ def time_top2(rows):
         dist.masked_fill_(~mask, float("inf"))
         return torch.topk(dist, 2, dim=1, largest=False)
 
+    # The INT8 library form (timed only; the port never calls it): both sets
+    # shifted by -128 to int8 (distances do not change under a common
+    # shift), torch._int_mm for the dot products, int32 distances, topk.
+    a8 = (a.to(torch.int16) - 128).to(torch.int8)
+    b8 = (b.to(torch.int16) - 128).to(torch.int8)
+    sq_a8 = (a8.to(torch.int32) ** 2).sum(1, keepdim=True)
+    sq_b8 = (b8.to(torch.int32) ** 2).sum(1)
+    imax = torch.iinfo(torch.int32).max
+
+    def library_int8(msk=None):
+        dist = sq_a8 + sq_b8 - 2 * torch._int_mm(a8, b8.T)
+        if msk is not None:
+            dist.masked_fill_(~msk, imax)
+        return torch.topk(dist, 2, dim=1, largest=False)
+
+    check(torch.equal(library_int8()[0].to(torch.float32),
+                      T.top2_sqdist_plain(a, b, m)[1]),
+          "the INT8 library form gives the same distances")
+
     flops = 2 * n * m * d
     out_bytes = n * (2 * 4 + 4)
     for key, msk, lib in (("unmasked", None, library),
@@ -906,18 +979,22 @@ def time_top2(rows):
         ms_call = _time_ms(lambda: T.top2_sqdist(a, b, m, msk), backlog=False)
         ms_plain = _time_ms(lambda: T.top2_sqdist_plain(a, b, m, msk))
         ms_lib = _time_ms(lib)
+        ms_int8 = _time_ms(lambda: library_int8(msk))
+        n_launch = per_call[key]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_INT8_OPS * 1e3  # uint8 descriptors
         rows.setdefault("top2_sqdist", {})[key] = dict(
             ms=ms, call_ms=ms_call, plain_ms=ms_plain, library_ms=ms_lib,
+            library_int8_ms=ms_int8, launches_per_call=n_launch,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes=nbytes, flops=flops)
         log(f"  top2_sqdist {key} {n}x{m}x{d} uint8: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s; call with host launch "
-            f"{ms_call:.4f} ms), bound {max(t_bytes, t_ops):.4f} ms "
-            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), plain "
-            f"{ms_plain:.4f} ms, addmm + topk {ms_lib:.4f} ms")
+            f"({flops / ms / 1e9:.1f} TOP/s, {n_launch} launches; call "
+            f"with host launch {ms_call:.4f} ms), bound "
+            f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GOP), plain {ms_plain:.4f} ms, addmm + topk "
+            f"{ms_lib:.4f} ms, _int_mm + topk {ms_int8:.4f} ms")
 
 
 def profile_match_pair(path):
@@ -961,6 +1038,101 @@ def profile_match_pair(path):
                 profiled_wall_ms=wall, device_busy_ms=busy)
 
 
+# --------------------------------------------------------------------------
+# The dense-assembly ablation profiler (row 7)
+# --------------------------------------------------------------------------
+
+VARIANT_SHOTS, VARIANT_POINTS = 64, 8192  # the TPU script's problem
+
+
+def check_assembly_variants():
+    """Phase 13: each mode's kernel against its plain version on the card,
+    at the profiler's 64 x 8,192 problem, f32: every written out_obs row and
+    s_ii within TOL_DENSE[f32]["out"] of its largest entry.  Returns (the
+    inputs, the worst absolute difference)."""
+    from opensfm_tpu_torch.ops.kernels import assembly_variants as V
+    from opensfm_tpu_torch.tools import profile_kernel_variants as tool
+
+    tol = TOL_DENSE[torch.float32]["out"]
+    args = tool.variant_inputs(
+        tool.dense_problem(VARIANT_SHOTS, VARIANT_POINTS), torch.device("cuda"))
+    worst = 0.0
+    for mode in V.MODES:
+        got = V.assembly_variant(mode, *args)
+        want = V.assembly_variant_plain(mode, *args)
+        again = V.assembly_variant(mode, *args)
+        torch.cuda.synchronize()
+        rows = V.rows_written(mode)
+        pairs = [(f"out_obs[{r}]", got[0][r], want[0][r]) for r in range(rows)]
+        pairs.append(("s_ii", got[1], want[1]))
+        rel = 0.0
+        for name, a, b in pairs:
+            check(bool(torch.isfinite(a).all()), f"{mode} {name} finite")
+            rel = max(rel, _rel(a, b))
+            worst = max(worst, float((a - b).abs().max()))
+        check(rel <= tol, f"assembly_variant {mode}: rel {rel:.3g}")
+        check(torch.equal(got[0][:rows], again[0][:rows])
+              and torch.equal(got[1], again[1]),
+              f"assembly_variant {mode} is deterministic")
+        check(bool((got[1].abs().max() > 0) == V.has_product(mode)),
+              f"assembly_variant {mode}: s_ii zero exactly without product")
+        log(f"  {mode}: {rows} out_obs rows and s_ii within {tol:g} "
+            f"(largest rel {rel:.3g})")
+    return args, worst
+
+
+def time_assembly_variants(args, rows):
+    """Phase 13: the profiler's entry point for all five modes, with the
+    launch counts read around it; each mode's time beside its bound and its
+    plain version."""
+    from opensfm_tpu_torch.ops.kernels import assembly_variants as V
+    from opensfm_tpu_torch.tools import profile_kernel_variants as tool
+
+    reset_launches()
+    times = tool.profile(V.MODES, "cuda", VARIANT_SHOTS, VARIANT_POINTS)
+    torch.cuda.synchronize()
+    n_launch = launches()["assembly_variant"]
+    check(n_launch > 0, "assembly_variant launched by the profiler")
+    n_p, ni = args[0].shape
+    slots = n_p * ni
+    inputs = sum(t.numel() * t.element_size() for t in args)
+    n6 = 6 * ni
+    for mode in V.MODES:
+        nbytes = inputs + (V.rows_written(mode) * slots + n6 * n6) * 4
+        per_slot = FLOPS_RESJAC_OBS if mode in ("full", "nomatmul", "noout") \
+            else FLOPS_COST_OBS
+        flops = slots * per_slot + (2 * n6 * n6 * 3 * n_p
+                                    if V.has_product(mode) else 0)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3  # FP32, no TF32
+        ms_plain = _time_ms(lambda m=mode: V.assembly_variant_plain(m, *args))
+        rows.setdefault("assembly_variant", {})[mode] = dict(
+            ms=times[mode], plain_ms=ms_plain, library_ms=None,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=nbytes, flops=flops)
+        log(f"  {mode:9s} {times[mode]:.4f} ms, bound "
+            f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP), plain {ms_plain:.4f} ms")
+    return n_launch
+
+
+def ptxas_spills(ptxas: str):
+    """{kernel: (spill store bytes, spill load bytes)} from nvcc -Xptxas -v."""
+    import re
+
+    out, name = {}, None
+    for line in ptxas.splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            name = hit.group(1)
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        line)
+        if hit and name is not None:
+            out[name] = (int(hit.group(1)), int(hit.group(2)))
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -977,6 +1149,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import synthetic_bundle as sb
     from opensfm_tpu_torch.ops.kernels import _build
+    from opensfm_tpu_torch.ops.kernels import assembly_variants as V
     from opensfm_tpu_torch.ops.kernels import ba_assemble as A
     from opensfm_tpu_torch.ops.kernels import ba_resjac as K
     from opensfm_tpu_torch.ops.kernels import top2 as T
@@ -990,7 +1163,7 @@ def main() -> int:
 
     log("phase 1: build (one nvcc per source, all at once)")
     t0 = time.perf_counter()
-    libs = _build.build_all([K.SOURCE, A.SOURCE, T.SOURCE])
+    libs = _build.build_all([K.SOURCE, A.SOURCE, T.SOURCE, V.SOURCE])
     log(f"  built in {time.perf_counter() - t0:.1f} s")
     for source, lib in libs.items():
         secs, ptxas = _build.BUILD_LOG[source]
@@ -998,6 +1171,12 @@ def main() -> int:
         for line in ptxas.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"    {line.strip()}")
+    u8 = {k: v for k, v in ptxas_spills(_build.BUILD_LOG[T.SOURCE][1])
+          .items() if "top2_u8_kernel" in k}
+    log(f"  tensor-core top-2 kernels' spills (stores, loads): "
+        f"{list(u8.values())}")
+    check(len(u8) == 2 and all(v == (0, 0) for v in u8.values()),
+          "the tensor-core top-2 kernels (unmasked, masked) do not spill")
 
     log("phase 2: kernels vs plain on the card")
     t0 = time.perf_counter()
@@ -1032,7 +1211,7 @@ def main() -> int:
 
     log("phase 8: top-2 search kernel vs plain on the card")
     t0 = time.perf_counter()
-    worst["top2_sqdist"] = check_top2()
+    worst["top2_sqdist"], top2_per_call = check_top2()
     log(f"  done in {time.perf_counter() - t0:.1f} s; worst abs err "
         f"{worst['top2_sqdist']}")
 
@@ -1057,8 +1236,16 @@ def main() -> int:
     log(f"  done in {time.perf_counter() - t0:.1f} s")
 
     log(f"phase 12: top-2 timings and one pair's profile ({card})")
-    time_top2(rows)
+    time_top2(rows, top2_per_call)
     pair_profile = profile_match_pair(match_path)
+
+    log(f"phase 13: assembly ablation profiler, {VARIANT_SHOTS} x "
+        f"{VARIANT_POINTS}, f32 ({card})")
+    t0 = time.perf_counter()
+    variant_args, worst["assembly_variant"] = check_assembly_variants()
+    variant_launches = time_assembly_variants(variant_args, rows)
+    log(f"  done in {time.perf_counter() - t0:.1f} s; launches "
+        f"{variant_launches}")
 
     paths = {name: ("bundle command 256x32768xK=8, f64", counts)
              for name in ("fused_residual_jacobian", "fused_cost")}
@@ -1066,6 +1253,22 @@ def main() -> int:
                   for name in DENSE_KERNELS})
     kernels = []
     for name, (source, replaces) in KERNELS.items():
+        if name == "assembly_variant":
+            by_mode = rows[name]
+            full = by_mode["full"]
+            kernels.append(dict(
+                name=name, route="cuda", source=source, replaces=replaces,
+                launches=variant_launches,
+                path=f"profile_kernel_variants {VARIANT_SHOTS}x"
+                     f"{VARIANT_POINTS}, f32",
+                max_abs_err=worst[name], ms=full["ms"],
+                plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
+                bound_by=full["bound_by"], library_ms=None, dtype="float32",
+                ms_by_mode={k: v["ms"] for k, v in by_mode.items()},
+                plain_ms_by_mode={k: v["plain_ms"] for k, v in by_mode.items()},
+                bound_ms_by_mode={k: v["bound_ms"] for k, v in by_mode.items()},
+            ))
+            continue
         if name == "top2_sqdist":
             un, ma = rows[name]["unmasked"], rows[name]["masked"]
             kernels.append(dict(
@@ -1079,6 +1282,10 @@ def main() -> int:
                 ms_masked=ma["ms"], plain_ms_masked=ma["plain_ms"],
                 bound_ms_masked=ma["bound_ms"],
                 library_ms_masked=ma["library_ms"],
+                library_int8_ms=un["library_int8_ms"],
+                library_int8_ms_masked=ma["library_int8_ms"],
+                call_ms=un["call_ms"], call_ms_masked=ma["call_ms"],
+                launches_per_call=un["launches_per_call"],
                 launches_words=words_launches, words_command_s=words_wall,
                 words_command_stage_s=words_stages, command_s=match_wall,
                 command_stage_s=stages, precision=scores[0],

@@ -10,34 +10,64 @@
 // so two columns tied for the best give d2 == d1.  A row with no allowed
 // column gets d1 = d2 = +inf and i1 = 0, as the Pallas kernel gives.
 //
-// What bounds it on the card: operations.  At N = M = 8,192 and D = 128 the
-// distance product is 2 N M D = 17.2 GFLOP, 0.26 ms at the 67 TFLOP/s FP32
-// rate outside the tensor cores, while a and b are 1 MB (uint8) to 4 MB
-// (float32) each, a few microseconds of memory time; the masked variant adds
-// 67 MB of mask, 0.02 ms.  The product stays on the FP32 pipes: uint8
-// descriptors give integer products and partial sums below 2^24
-// (128 * 255^2 = 8.3 M), so every float32 distance is exact in any order of
-// summation and the kernel agrees bitwise with its plain twin and with the
-// JAX package.  A TF32 or lower-precision product would lose that.
+// Two kernels compute it, by the descriptors' type.
 //
-// Design.  The TPU kernel keeps a running (best, argbest, second) per query
-// row in VMEM across a sequential grid over M.  Here each block owns 128
-// query rows and one contiguous slice of the columns (the columns are split
-// across blocks so that 8,192 query rows still give ~512 blocks for 132
-// SMs).  A block walks its slice in 128-column tiles: a classic shared-memory
-// SGEMM micro-kernel (256 threads, 8 x 8 distances each, 16-deep k stages;
-// the inner product is written with explicit fmaf, since the build turns FMA
-// contraction off) and, fused into its epilogue, a running top-2 per thread
-// and row.  The 16 threads that share a row merge their states with warp
-// shuffles, and the block writes one partial (d1, i1, d2) per row and slice;
+// uint8 descriptors with D <= 129 (top2_sqdist_u8): the INT8 tensor cores.
+// The product a_r . b_c runs as mma.sync m16n8k32 u8 x u8 -> s32, which is
+// exact.  The plain twin computes (float(|a|^2) + float(|b|^2)) - 2 dot in
+// float32; while 2 D * 255^2 < 2^24 (D <= 129: SIFT and HAHOG's 128, with
+// or without a segment column, ORB's 32, AKAZE's 61) every term and sum is
+// an integer below 2^24, so the twin is exact too.  The epilogue computes
+// that value in integers, compares integers, and converts only the row's
+// result: bitwise equal to the twin.  Wider uint8 descriptors take the
+// float32 kernel (the wrapper routes them), which is bitwise equal to the
+// twin as well up to D = 258: it forms the same float32 expression in the
+// same order from products that stay exact while D * 255^2 < 2^24.
+//   What bounds it: at N = M = 8,192 and D = 128 the product is
+// 2 N M D = 17.2 G integer operations, 8.7 us at the card's 1,979 TOP/s; a
+// and b are 1 MB each; the masked form reads 67 MB of mask, 20 us.  But the
+// top-2 epilogue runs on the SIMT pipes, ~8 instructions for each of the
+// 67 M distances, which is more than the product: the epilogue, and the
+// mask's bytes when masked, set the pace.  Hence the integer epilogue (no
+// int-to-float conversion, which runs at a quarter of the FP32 rate) and a
+// running top-2 that rejects most candidates with one compare.
+//   Design.  A block owns 128 query rows and a slice of the columns (split
+// across blocks as below), 8 warps of 16 rows each.  The query tile stays in
+// shared memory for the whole slice; 128-column database tiles (and, masked,
+// their 128 x 128 mask bytes) stream through a double-buffered ring of
+// 16-byte cp.async copies, K zero-padded to a multiple of 64 (zeros change
+// neither dot products nor norms).  Rows are padded to a stride of 64 mod
+// 128 bytes and k is permuted consistently for A and B inside each 64-byte
+// chunk, so each lane loads a fragment pair with one conflict-free 16-byte
+// shared load.  A warp sweeps its 16 rows against 64 columns at a time (8 n8
+// accumulators, 32 registers; all 128 at once spilled), then pushes its
+// 2 rows x 16 columns per lane into a running (d1, i1, d2) per row; the
+// query rows' fragments are reread for the second half (1/8 of the shared
+// loads).  The norms come from the tiles in
+// shared memory (__dp4a, exact).  At the end of the slice the quad of lanes
+// that shares a row merges by shuffles.  One launch when a single slice
+// covers the columns, else two (the slice merge below).
+//
+// float32 descriptors, and wider uint8 ones (top2_sqdist_f32): a classic
+// shared-memory SGEMM micro-kernel (256 threads, 8 x 8 distances each,
+// 16-deep k stages, explicit fmaf since the build turns FMA contraction off)
+// with the running top-2 fused into its epilogue; row norms from a small
+// kernel (one warp per row).  Operations bound it (0.26 ms of FP32 at the
+// shape above); TF32 would lose exactness.  Four launches.
+//
+// Both follow the TPU kernel's running (best, argbest, second) per query row,
+// which it keeps in VMEM across a sequential grid over M.  Here each block
+// owns 128 query rows and one contiguous slice of the columns (the columns
+// are split across blocks so that 8,192 query rows still give ~512 blocks for
+// 132 SMs); the block writes one partial (d1, i1, d2) per row and slice and
 // a second small kernel merges the slices.  Every merge orders candidates by
 // (distance, column), so the result is the same whatever the order of the
-// merges: deterministic, and equal to the sequential scan's.  Row norms come
-// from a third small kernel (one warp per row).
+// merges: deterministic, and equal to the sequential scan's.
 //
 // Interface: plain C functions (ctypes), launched on the caller's stream; each
-// returns cudaGetLastError() after its launches.  The caller allocates the
-// scratch (norms and partials) and the outputs.
+// returns cudaGetLastError() after its launches (-2 for a uint8 width the
+// tensor-core kernel does not take).  The caller allocates the scratch
+// (norms and partials) and the outputs.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -79,23 +109,17 @@ __device__ __forceinline__ void merge(float& a1, int& ai, float& a2, float c1,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T v) {
-  return static_cast<float>(v);
-}
-
 // |x_r|^2 per row, one warp per row: lane-strided fmaf sums, then a fixed
-// butterfly.  Deterministic; exact for uint8 rows.
-template <typename T>
-__global__ void sqnorm_kernel(const T* __restrict__ x, int n, int d,
+// butterfly.  Deterministic.
+__global__ void sqnorm_kernel(const float* __restrict__ x, int n, int d,
                               float* __restrict__ out) {
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= n) return;
-  const T* row = x + (long long)warp * d;
+  const float* row = x + (long long)warp * d;
   float s = 0.f;
   for (int k = lane; k < d; k += 32) {
-    const float v = to_f32(row[k]);
+    const float v = row[k];
     s = fmaf(v, v, s);
   }
 #pragma unroll
@@ -105,9 +129,9 @@ __global__ void sqnorm_kernel(const T* __restrict__ x, int n, int d,
 
 // One block: rows [row0, row0 + 128) against columns
 // [blockIdx.y * cols_per_split, ... + cols_per_split) clipped to n2.
-template <typename T, bool kMasked>
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads, 2)
-top2_partial_kernel(const T* __restrict__ a, const T* __restrict__ b,
+top2_partial_kernel(const float* __restrict__ a, const float* __restrict__ b,
                     const float* __restrict__ sq_a,
                     const float* __restrict__ sq_b,
                     const uint8_t* __restrict__ mask, int n, int m, int d,
@@ -153,10 +177,9 @@ top2_partial_kernel(const T* __restrict__ a, const T* __restrict__ b,
       for (int s = 0; s < kTileN / 16; ++s) {
         const int r = lr + 16 * s;
         const int gr = row0 + r;
-        As[lk][r] = (gr < n && k < d) ? to_f32(a[(long long)gr * d + k]) : 0.f;
+        As[lk][r] = (gr < n && k < d) ? a[(long long)gr * d + k] : 0.f;
         const int gc = col0 + r;
-        Bs[lk][r] = (gc < col_end && k < d) ? to_f32(b[(long long)gc * d + k])
-                                            : 0.f;
+        Bs[lk][r] = (gc < col_end && k < d) ? b[(long long)gc * d + k] : 0.f;
       }
       __syncthreads();
 #pragma unroll
@@ -241,28 +264,332 @@ __global__ void top2_merge_kernel(const float* __restrict__ part_d1,
   out_idx[r] = bi;
 }
 
-template <typename T>
-int top2(const T* a, const T* b, const uint8_t* mask, int n, int m, int d,
-         int n2, int splits, int cols_per_split, float* sq_a, float* sq_b,
-         float* part_d1, int* part_i1, float* part_d2, float* out_dist,
-         int* out_idx, void* stream) {
+// ---------------------------------------------------------------------------
+// uint8: the INT8 tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxD8 = 129;    // 2 D * 255^2 < 2^24: |a|^2 + |b|^2 exact in f32
+constexpr int kMaskLd = 144;   // mask tile row stride: conflict-free u16 reads
+constexpr int kNone = 1 << 30; // no candidate; above every distance (< 2^24)
+constexpr int kHalfNb = 8;     // n8 blocks a warp sweeps at once (64 columns)
+
+// push() for one state that sees its columns in increasing order, in
+// integers: a later column never wins a tie, so one compare rejects most.
+__device__ __forceinline__ void push_ordered(int& b1, int& i1, int& b2, int d,
+                                             int j) {
+  if (d < b2) {
+    if (d < b1) {
+      b2 = b1;
+      b1 = d;
+      i1 = j;
+    } else {
+      b2 = d;
+    }
+  }
+}
+
+__device__ __forceinline__ float as_dist(int x) {
+  return x >= kNone ? CUDART_INF_F : static_cast<float>(x);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Copies 128 rows into shared memory: row r of src at src + r * ld, the
+// first `valid` rows of `width` bytes each, to dst + r * dst_ld, `chunks`
+// 16-byte chunks a row.  Bytes past `width` and rows past `valid` are zero.
+// With `vec` (src, ld and width multiples of 16) as 16-byte cp.async copies,
+// else by byte loads (ragged widths).
+__device__ __forceinline__ void load_rows(uint8_t* dst, int dst_ld,
+                                          const uint8_t* src, long long ld,
+                                          int valid, int width, int chunks,
+                                          bool vec) {
+  for (int q = threadIdx.x; q < kTileN * chunks; q += kThreads) {
+    const int r = q / chunks;
+    const int k = (q - r * chunks) * 16;
+    uint8_t* to = dst + r * dst_ld + k;
+    const uint8_t* from = src + r * ld + k;
+    if (vec) {
+      const bool in = r < valid && k < width;
+      cp_async16(to, in ? from : src, in ? 16 : 0);
+    } else {
+      unsigned w[4] = {0u, 0u, 0u, 0u};
+      if (r < valid) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          if (k + j < width) w[j >> 2] |= unsigned(from[j]) << (8 * (j & 3));
+        }
+      }
+      *reinterpret_cast<uint4*>(to) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// |row|^2 of a padded shared-memory row, two threads a row (`half` 0 and 1
+// of its dp bytes), exact in integers; both threads get the total.
+__device__ __forceinline__ int row_sqnorm(const uint8_t* row, int half,
+                                          int dp) {
+  const int h = dp >> 1;
+  unsigned s = 0u;
+  for (int k = half * h; k < half * h + h; k += 16) {
+    const uint4 w = *reinterpret_cast<const uint4*>(row + k);
+    s = __dp4a(w.x, w.x, s);
+    s = __dp4a(w.y, w.y, s);
+    s = __dp4a(w.z, w.z, s);
+    s = __dp4a(w.w, w.w, s);
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  return static_cast<int>(s);
+}
+
+// c += A (16 x 32, row) B (32 x 8, col), u8 x u8 -> s32.
+__device__ __forceinline__ void mma_u8(int (&c)[4], unsigned a0, unsigned a1,
+                                       unsigned a2, unsigned a3, unsigned b0,
+                                       unsigned b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// One block: rows [row0, row0 + 128) against the columns of slice
+// blockIdx.y clipped to n2.  Shared memory (dynamic): the query tile, two
+// database tiles (128 rows of ld_s bytes each), masked two mask tiles
+// (128 x kMaskLd), and the tiles' norms.  Warp w owns rows 16 w .. 16 w + 15;
+// lane (g = lane / 4, t = lane % 4) holds rows 16 w + g and + 8, columns
+// 8 nb + 2 t and + 1 of each n8 block nb (the m16n8 accumulator layout).
+// Within each 64-byte chunk of K, logical k of the mma maps to byte
+// 16 t + 4 (2 s + h) + j for step s in {0, 1}, half h (registers a0/a1 vs
+// a2/a3, b0 vs b1) and byte j: the same map for A and B, so the dot products
+// are unchanged and each lane reads its four fragment words at once.
+//   The epilogue stays in integers: the distance the plain twin computes in
+// float32, (|a|^2 + |b|^2) - 2 a.b, is an exact integer, so the running
+// top-2 compares exactly what the twin compares; excluded candidates
+// (masked, or columns past the slice, whose norm is set to kNone) never
+// enter it.
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads, 2)
+top2_u8_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
+               const uint8_t* __restrict__ mask, int n, int m, int d, int n2,
+               int cols_per_split, int dp, int ld_s, bool vec_ab,
+               bool vec_mask, float* __restrict__ part_d1,
+               int* __restrict__ part_i1, float* __restrict__ part_d2,
+               float* __restrict__ out_dist, int* __restrict__ out_idx) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* As = smem;
+  uint8_t* Bs = As + kTileN * ld_s;
+  uint8_t* Ms = Bs + 2 * kTileM * ld_s;
+  int* sqa_s =
+      reinterpret_cast<int*>(Ms + (kMasked ? 2 * kTileN * kMaskLd : 0));
+  int* sqb_s = sqa_s + kTileN;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r_loc = (tid >> 5) * 16 + g;  // this lane's first row in the tile
+  const int row0 = blockIdx.x * kTileN;
+  const int col_begin = blockIdx.y * cols_per_split;
+  const int col_end = min(n2, col_begin + cols_per_split);
+  const int chunks = dp >> 4;
+
+  load_rows(As, ld_s, a + (long long)row0 * d, d, n - row0, d, chunks,
+            vec_ab);
+  auto load_tile = [&](int col0, int buf) {
+    load_rows(Bs + buf * kTileM * ld_s, ld_s, b + (long long)col0 * d, d,
+              col_end - col0, d, chunks, vec_ab);
+    if (kMasked) {
+      load_rows(Ms + buf * kTileN * kMaskLd, kMaskLd,
+                mask + (long long)row0 * m + col0, m, n - row0, m - col0,
+                kTileM / 16, vec_mask);
+    }
+  };
+  if (col_begin < col_end) load_tile(col_begin, 0);
+  cp_async_commit();
+
+  int b1[2] = {kNone, kNone};
+  int b2[2] = {kNone, kNone};
+  int bi[2] = {0, 0};
+  const uint8_t* a_frag = As + r_loc * ld_s + 16 * t;
+
+  int buf = 0;
+  for (int col0 = col_begin; col0 < col_end; col0 += kTileM, buf ^= 1) {
+    if (col0 + kTileM < col_end) load_tile(col0 + kTileM, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_one();  // this tile (and the query tile) have landed
+    __syncthreads();
+    const uint8_t* Bt = Bs + buf * kTileM * ld_s;
+    {
+      const int r = tid >> 1, half = tid & 1;
+      if (col0 == col_begin) {
+        const int s = row_sqnorm(As + r * ld_s, half, dp);
+        if (half == 0) sqa_s[r] = s;
+      }
+      const int s = row_sqnorm(Bt + r * ld_s, half, dp);
+      if (half == 0) sqb_s[r] = col0 + r < col_end ? s : kNone;
+    }
+    __syncthreads();
+
+    // Two halves of 64 columns each: 32 accumulator registers, not 64, so
+    // the epilogue's state fits beside them without spilling.
+    const int sa0 = sqa_s[r_loc], sa1 = sqa_s[r_loc + 8];
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      int acc[kHalfNb][4];
+#pragma unroll
+      for (int nb = 0; nb < kHalfNb; ++nb) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nb][i] = 0;
+      }
+      const uint8_t* b_frag = Bt + (h * kHalfNb * 8 + g) * ld_s + 16 * t;
+      for (int k = 0; k < dp; k += 64) {
+        const uint4 lo = *reinterpret_cast<const uint4*>(a_frag + k);
+        const uint4 hi =
+            *reinterpret_cast<const uint4*>(a_frag + 8 * ld_s + k);
+#pragma unroll
+        for (int nb = 0; nb < kHalfNb; ++nb) {
+          const uint4 bv =
+              *reinterpret_cast<const uint4*>(b_frag + nb * 8 * ld_s + k);
+          mma_u8(acc[nb], lo.x, hi.x, lo.y, hi.y, bv.x, bv.y);
+          mma_u8(acc[nb], lo.z, hi.z, lo.w, hi.w, bv.z, bv.w);
+        }
+      }
+
+      // Epilogue: the distances of these columns into the running top-2.
+      const uint8_t* m_row = Ms + buf * kTileN * kMaskLd + r_loc * kMaskLd +
+                             h * kHalfNb * 8 + 2 * t;
+#pragma unroll
+      for (int nb = 0; nb < kHalfNb; ++nb) {
+        const int cl = (h * kHalfNb + nb) * 8 + 2 * t;
+        const int sb0 = sqb_s[cl], sb1 = sqb_s[cl + 1];
+        int d00 = sa0 + sb0 - 2 * acc[nb][0];
+        int d01 = sa0 + sb1 - 2 * acc[nb][1];
+        int d10 = sa1 + sb0 - 2 * acc[nb][2];
+        int d11 = sa1 + sb1 - 2 * acc[nb][3];
+        if (kMasked) {
+          const unsigned m0 =
+              *reinterpret_cast<const uint16_t*>(m_row + nb * 8);
+          const unsigned m1 = *reinterpret_cast<const uint16_t*>(
+              m_row + 8 * kMaskLd + nb * 8);
+          if ((m0 & 0xffu) == 0u) d00 = kNone;
+          if ((m0 >> 8) == 0u) d01 = kNone;
+          if ((m1 & 0xffu) == 0u) d10 = kNone;
+          if ((m1 >> 8) == 0u) d11 = kNone;
+        }
+        const int c = col0 + cl;
+        push_ordered(b1[0], bi[0], b2[0], d00, c);
+        push_ordered(b1[1], bi[1], b2[1], d10, c);
+        push_ordered(b1[0], bi[0], b2[0], d01, c + 1);
+        push_ordered(b1[1], bi[1], b2[1], d11, c + 1);
+      }
+    }
+    __syncthreads();  // the next iteration refills this buffer
+  }
+
+  // The quad of lanes that shares a row merges its states, as distances.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float e1 = as_dist(b1[i]), e2 = as_dist(b2[i]);
+    int ei = bi[i];
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float o1 = __shfl_xor_sync(0xffffffffu, e1, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, ei, off);
+      const float o2 = __shfl_xor_sync(0xffffffffu, e2, off);
+      merge(e1, ei, e2, o1, oi, o2);
+    }
+    const int r = row0 + r_loc + 8 * i;
+    if (t != 0 || r >= n) continue;
+    if (gridDim.y == 1) {
+      out_dist[2LL * r] = e1;
+      out_dist[2LL * r + 1] = e2;
+      out_idx[r] = ei;
+    } else {
+      const long long o = (long long)blockIdx.y * n + r;
+      part_d1[o] = e1;
+      part_i1[o] = ei;
+      part_d2[o] = e2;
+    }
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0u;
+}
+
+template <bool kMasked>
+int launch_u8(const uint8_t* a, const uint8_t* b, const uint8_t* mask, int n,
+              int m, int d, int n2, int splits, int cols_per_split,
+              float* part_d1, int* part_i1, float* part_d2, float* out_dist,
+              int* out_idx, cudaStream_t st) {
+  const int dp = (d + 63) / 64 * 64;
+  const int ld_s = dp % 128 == 0 ? dp + 64 : dp;  // 64 mod 128 bytes
+  const int smem = 3 * kTileN * ld_s + (kMasked ? 2 * kTileN * kMaskLd : 0) +
+                   2 * kTileN * static_cast<int>(sizeof(float));
+  auto* kernel = top2_u8_kernel<kMasked>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // All of the SM's unified memory as shared memory: two blocks fit.
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const bool vec_ab = d % 16 == 0 && aligned16(a) && aligned16(b);
+  const bool vec_mask = kMasked && m % 16 == 0 && aligned16(mask);
+  const dim3 grid((n + kTileN - 1) / kTileN, splits);
+  kernel<<<grid, kThreads, smem, st>>>(
+      a, b, mask, n, m, d, n2, cols_per_split, dp, ld_s, vec_ab, vec_mask,
+      part_d1, part_i1, part_d2, out_dist, out_idx);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  top2_merge_kernel<<<(n + 255) / 256, 256, 0, st>>>(
+      part_d1, part_i1, part_d2, n, splits, out_dist, out_idx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// float32 (the wrapper converts wider uint8 sets): the SIMT kernels.
+// a [n, d], b [m, d] row-major; mask [n, m] bytes or null; n >= 1; only the
+// first n2 <= m rows of b are searched.  Scratch: sq_a [n], sq_b [m],
+// partials [splits, n] each.  Outputs: dist [n, 2], idx [n].
+int top2_sqdist_f32(const float* a, const float* b, const uint8_t* mask,
+                    int n, int m, int d, int n2, int splits,
+                    int cols_per_split, float* sq_a, float* sq_b,
+                    float* part_d1, int* part_i1, float* part_d2,
+                    float* out_dist, int* out_idx, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int warps_per_block = 8;
   if (n > 0) {
-    sqnorm_kernel<T><<<(n + warps_per_block - 1) / warps_per_block,
-                       32 * warps_per_block, 0, st>>>(a, n, d, sq_a);
+    sqnorm_kernel<<<(n + warps_per_block - 1) / warps_per_block,
+                    32 * warps_per_block, 0, st>>>(a, n, d, sq_a);
   }
   if (n2 > 0) {
-    sqnorm_kernel<T><<<(n2 + warps_per_block - 1) / warps_per_block,
-                       32 * warps_per_block, 0, st>>>(b, n2, d, sq_b);
+    sqnorm_kernel<<<(n2 + warps_per_block - 1) / warps_per_block,
+                    32 * warps_per_block, 0, st>>>(b, n2, d, sq_b);
   }
   const dim3 grid((n + kTileN - 1) / kTileN, splits);
   if (mask != nullptr) {
-    top2_partial_kernel<T, true><<<grid, kThreads, 0, st>>>(
+    top2_partial_kernel<true><<<grid, kThreads, 0, st>>>(
         a, b, sq_a, sq_b, mask, n, m, d, n2, cols_per_split, part_d1, part_i1,
         part_d2);
   } else {
-    top2_partial_kernel<T, false><<<grid, kThreads, 0, st>>>(
+    top2_partial_kernel<false><<<grid, kThreads, 0, st>>>(
         a, b, sq_a, sq_b, mask, n, m, d, n2, cols_per_split, part_d1, part_i1,
         part_d2);
   }
@@ -272,31 +599,22 @@ int top2(const T* a, const T* b, const uint8_t* mask, int n, int m, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" {
-
-// a [n, d], b [m, d] row-major; mask [n, m] bytes or null; n >= 1; only the
-// first n2 <= m rows of b are searched.  Scratch: sq_a [n], sq_b [m],
-// partials [splits, n] each.  Outputs: dist [n, 2], idx [n].
-int top2_sqdist_f32(const float* a, const float* b, const uint8_t* mask,
-                    int n, int m, int d, int n2, int splits,
-                    int cols_per_split, float* sq_a, float* sq_b,
-                    float* part_d1, int* part_i1, float* part_d2,
-                    float* out_dist, int* out_idx, void* stream) {
-  return top2<float>(a, b, mask, n, m, d, n2, splits, cols_per_split, sq_a,
-                     sq_b, part_d1, part_i1, part_d2, out_dist, out_idx,
-                     stream);
-}
-
+// The same for uint8 a and b with 1 <= d <= 129, on the tensor cores; no norm
+// scratch.  With splits == 1 the search writes the outputs itself (one
+// launch), else its partials and the merge (two).
 int top2_sqdist_u8(const uint8_t* a, const uint8_t* b, const uint8_t* mask,
                    int n, int m, int d, int n2, int splits,
-                   int cols_per_split, float* sq_a, float* sq_b,
-                   float* part_d1, int* part_i1, float* part_d2,
-                   float* out_dist, int* out_idx, void* stream) {
-  return top2<uint8_t>(a, b, mask, n, m, d, n2, splits, cols_per_split, sq_a,
-                       sq_b, part_d1, part_i1, part_d2, out_dist, out_idx,
-                       stream);
+                   int cols_per_split, float* part_d1, int* part_i1,
+                   float* part_d2, float* out_dist, int* out_idx,
+                   void* stream) {
+  if (d < 1 || d > kMaxD8) return -2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mask != nullptr) {
+    return launch_u8<true>(a, b, mask, n, m, d, n2, splits, cols_per_split,
+                           part_d1, part_i1, part_d2, out_dist, out_idx, st);
+  }
+  return launch_u8<false>(a, b, mask, n, m, d, n2, splits, cols_per_split,
+                          part_d1, part_i1, part_d2, out_dist, out_idx, st);
 }
 
 }  // extern "C"

@@ -36,7 +36,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-# source name -> (seconds spent compiling, ptxas report); 0 s when cached.
+# source name -> (seconds spent compiling, ptxas report); 0 s when cached,
+# with the report kept beside the library when it was built.
 BUILD_LOG: Dict[str, Tuple[float, str]] = {}
 
 
@@ -64,8 +65,10 @@ def build(source: str) -> Path:
     """Compile `source` unless its library exists; returns the library path.
     Raises RuntimeError with nvcc's output when the compile fails."""
     out = library_path(source)
+    report = out.with_suffix(".ptxas")
     if out.exists():
-        BUILD_LOG.setdefault(source, (0.0, ""))
+        kept = report.read_text() if report.exists() else ""
+        BUILD_LOG.setdefault(source, (0.0, kept))
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -78,6 +81,7 @@ def build(source: str) -> Path:
                 f"nvcc failed on {source} ({proc.returncode}):\n"
                 f"{proc.stdout}\n{proc.stderr}"
             )
+        report.write_text(proc.stderr)
         os.replace(tmp, out)  # atomic: concurrent builders agree
     finally:
         if tmp.exists():

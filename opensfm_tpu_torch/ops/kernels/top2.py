@@ -9,18 +9,25 @@ minimum over every other allowed column (so a tie for the best gives
 d2 == d1), and +inf, column 0 for rows with no allowed column.  An optional
 [N, M] mask (bool or uint8, non-zero = allowed) restricts the candidates.
 
-The CUDA source (`csrc/top2.cu`) splits the columns across blocks, runs a
-shared-memory FP32 product with the running top-2 in its epilogue, and
-merges the column slices with a (distance, column) order, so its result
-does not depend on the split.  On uint8 descriptors every distance is an
-exact integer in float32, and the kernel, the plain twin and the JAX
-package agree bitwise.
+The CUDA source (`csrc/top2.cu`) splits the columns across blocks, keeps a
+running top-2 in the product's epilogue, and merges the column slices with
+a (distance, column) order, so its result does not depend on the split.
+`kernel_route` picks its kernel: uint8 descriptors with D <= U8_MAX_D run
+the product on the INT8 tensor cores (exact integers; one launch, or two
+with the slice merge); float descriptors, mixed pairs and wider uint8 ones
+run it on the FP32 pipes (four launches: two row-norm passes, the search
+and the merge).  U8_MAX_D = 129 covers every OpenSfM feature type (SIFT
+and HAHOG 128, 129 with the segment column; AKAZE 61; ORB 32); up to it
+every uint8 distance is an exact integer in float32.  Up to
+U8_BITWISE_MAX_D = 258 (D * 255^2 < 2^24) the products stay exact and the
+only rounding is that of the norms' float32 sum, which both kernels
+perform as the twin does, so on uint8 the kernels, the plain twin and the
+JAX package agree bitwise; wider uint8 descriptors round like float ones.
 
 The wrapper runs the plain PyTorch version when its tensors lie on the CPU
 and launches the kernel when they lie on a CUDA device; it never falls back
 from one to the other.  `top2_sqdist.launches` counts the calls that
-launched the kernel (each call launches four CUDA kernels: two row-norm
-passes, the partial search and the merge).
+launched the kernel.
 """
 
 from __future__ import annotations
@@ -36,6 +43,12 @@ SOURCE = "top2.cu"
 TILE_N = 128  # query rows per block (kTileN)
 TILE_M = 128  # database columns per tile (kTileM)
 TARGET_BLOCKS = 528  # four blocks on each of the H100's 132 SMs
+# The widest uint8 descriptors of the tensor-core kernel: 2 D * 255^2 < 2^24,
+# so norms, dot products and their float32 sums stay exact integers.
+U8_MAX_D = 129
+# The widest uint8 descriptors on which either kernel is bitwise equal to
+# the plain twin: D * 255^2 < 2^24, every product exact.
+U8_BITWISE_MAX_D = 258
 
 
 def top2_sqdist_plain(d1: torch.Tensor, d2: torch.Tensor, n2: int,
@@ -74,11 +87,10 @@ _I = ctypes.c_int
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    for name in ("top2_sqdist_f32", "top2_sqdist_u8"):
-        fn = getattr(lib, name)
-        fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                       _P, _P, _P, _P]
-        fn.restype = _I
+    head = [_P, _P, _P, _I, _I, _I, _I, _I, _I]
+    lib.top2_sqdist_f32.argtypes = head + [_P] * 8
+    lib.top2_sqdist_u8.argtypes = head + [_P] * 6
+    lib.top2_sqdist_f32.restype = lib.top2_sqdist_u8.restype = _I
 
 
 def _lib() -> ctypes.CDLL:
@@ -94,6 +106,16 @@ def split_columns(n: int, n2: int) -> Tuple[int, int]:
     splits = min(tiles, max(1, -(-TARGET_BLOCKS // row_blocks)))
     per = -(-tiles // splits)
     return -(-tiles // per), per * TILE_M
+
+
+def kernel_route(d1: torch.Tensor, d2: torch.Tensor) -> str:
+    """The kernel a pair of descriptor sets takes on the card: "u8" (INT8
+    tensor cores) for uint8 sets of width 1..U8_MAX_D, else "f32" (both
+    promoted to float32)."""
+    if d1.dtype == torch.uint8 and d2.dtype == torch.uint8 \
+            and 1 <= d1.shape[-1] <= U8_MAX_D:
+        return "u8"
+    return "f32"
 
 
 def top2_sqdist(d1: torch.Tensor, d2: torch.Tensor, n2: int,
@@ -116,15 +138,13 @@ def top2_sqdist(d1: torch.Tensor, d2: torch.Tensor, n2: int,
         raise ValueError(f"n2 = {n2} outside [0, {m}]")
     if d2.device != d1.device:
         raise ValueError("d1 and d2 must be on one CUDA device")
-    if d1.dtype == torch.uint8 and d2.dtype == torch.uint8:
-        suffix = "u8"
-    else:
-        if not (d1.dtype.is_floating_point or d1.dtype == torch.uint8) or \
-                not (d2.dtype.is_floating_point or d2.dtype == torch.uint8):
+    for t in (d1, d2):
+        if not (t.dtype.is_floating_point or t.dtype == torch.uint8):
             raise TypeError(f"descriptors must be uint8 or float, not "
                             f"{d1.dtype}, {d2.dtype}")
+    route = kernel_route(d1, d2)
+    if route == "f32":
         d1, d2 = d1.to(torch.float32), d2.to(torch.float32)
-        suffix = "f32"
     d1, d2 = d1.contiguous(), d2.contiguous()
     mptr = None
     if mask is not None:
@@ -142,17 +162,18 @@ def top2_sqdist(d1: torch.Tensor, d2: torch.Tensor, n2: int,
     if n == 0:
         return idx, dist
     splits, per = split_columns(n, n2)
-    sq_a = torch.empty((n,), dtype=torch.float32, device=dev)
-    sq_b = torch.empty((max(m, 1),), dtype=torch.float32, device=dev)
     part_d = torch.empty((2, splits, n), dtype=torch.float32, device=dev)
     part_i = torch.empty((splits, n), dtype=torch.int32, device=dev)
-    fn = getattr(_lib(), f"top2_sqdist_{suffix}")
+    scratch = [part_d[0].data_ptr(), part_i.data_ptr(), part_d[1].data_ptr()]
+    if route == "f32":
+        sq_a = torch.empty((n,), dtype=torch.float32, device=dev)
+        sq_b = torch.empty((max(m, 1),), dtype=torch.float32, device=dev)
+        scratch = [sq_a.data_ptr(), sq_b.data_ptr()] + scratch
+    fn = getattr(_lib(), f"top2_sqdist_{route}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(d1.data_ptr(), d2.data_ptr(), mptr, n, m, d, int(n2), splits,
-                 per, sq_a.data_ptr(), sq_b.data_ptr(), part_d[0].data_ptr(),
-                 part_i.data_ptr(), part_d[1].data_ptr(), dist.data_ptr(),
-                 idx.data_ptr(), stream)
+                 per, *scratch, dist.data_ptr(), idx.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"top2_sqdist kernel launch failed (cuda error "
                            f"{err})")

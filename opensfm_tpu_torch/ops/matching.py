@@ -22,7 +22,7 @@ from opensfm_tpu_torch.ops.kernels.top2 import top2_sqdist
 
 
 def _as_descriptors(d: np.ndarray, device: torch.device) -> torch.Tensor:
-    """uint8 descriptors stay uint8 (the kernel upcasts as it loads them);
+    """uint8 descriptors stay uint8 (the kernel takes them as they are);
     anything else goes to float32, as the reference casts it.  A uint8 set
     matched against a float one is promoted by `top2_sqdist`."""
     d = np.asarray(d)

@@ -28,9 +28,14 @@ matching_path = {
         "feature_loader", "geometry.angles", "pairs_selection",
         "geometry.polynomial", "geometry.essential", "robust.ransac",
         "matching", "actions.match_features", "commands.match_features")}
+matching_path |= {"opensfm_tpu_torch.ops.kernels.assembly_variants",
+                  "opensfm_tpu_torch.tools.profile_kernel_variants"}
 missing = sorted(matching_path - set(names))
-print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 20 else 0)
+# Importing builds nothing: no nvcc runs and no library is loaded.
+from opensfm_tpu_torch.ops.kernels import _build
+built = sorted(_build.BUILD_LOG) + sorted(_build._loaded)
+print(len(names), bad, missing, built)
+sys.exit(1 if bad or missing or built or len(names) < 20 else 0)
 """
 
 

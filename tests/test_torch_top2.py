@@ -149,6 +149,81 @@ def test_split_columns_covers_the_columns():
     assert T.split_columns(8192, 8192) == (8, 1024)
 
 
+@pytest.mark.parametrize("n,n2", [(8192, 8155), (8192, 129), (1000, 740),
+                                  (7, 4099), (300, 1)], ids=str)
+def test_split_columns_at_ragged_n2(n, n2):
+    """Every column below n2 lies in exactly one slice of whole 128-column
+    tiles, and no slice is empty (the last one holds the ragged tail)."""
+    splits, per = T.split_columns(n, n2)
+    starts = np.arange(splits) * per
+    ends = np.minimum(starts + per, n2)
+    assert per % T.TILE_M == 0 and np.all(ends > starts)
+    cover = np.concatenate([np.arange(s, e) for s, e in zip(starts, ends)])
+    np.testing.assert_array_equal(cover, np.arange(n2))
+
+
+@pytest.mark.parametrize("kind,d,route", [
+    ("uint8", 128, "u8"), ("uint8", 129, "u8"), ("uint8", 130, "f32"),
+    ("uint8", 258, "f32"), ("uint8", 259, "f32"), ("float32", 128, "f32"),
+    ("mixed", 128, "f32")])
+def test_kernel_route(kind, d, route):
+    """uint8 pairs of width <= U8_MAX_D (129, the widest OpenSfM feature
+    type) take the tensor-core kernel, whose integer epilogue needs the
+    norms' sum below 2^24; wider, float and mixed pairs the float32 one,
+    which stays bitwise equal to the twin while D * 255^2 < 2^24."""
+    assert 2 * T.U8_MAX_D * 255 ** 2 < 2 ** 24 <= 2 * (T.U8_MAX_D + 1) * 255 ** 2
+    assert T.U8_BITWISE_MAX_D * 255 ** 2 < 2 ** 24 \
+        <= (T.U8_BITWISE_MAX_D + 1) * 255 ** 2
+    d1 = torch.zeros((3, d), dtype=torch.float32 if kind == "float32"
+                     else torch.uint8)
+    d2 = torch.zeros((5, d), dtype=torch.float32 if kind != "uint8"
+                     else torch.uint8)
+    assert T.kernel_route(d1, d2) == route
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+def test_top2_uint8_bitwise_where_norm_sums_round(masked):
+    """uint8 descriptors of width U8_BITWISE_MAX_D with norms near
+    255^2 * 258: their float32 sum rounds above 2^24, but every product is
+    exact, so the plain twin (what the float32 kernel is held to bitwise on
+    the card) and the JAX package's jnp twin agree bitwise."""
+    rng = np.random.default_rng(3)
+    d = T.U8_BITWISE_MAX_D
+    d1 = (255 - rng.integers(0, 4, (60, d))).astype(np.float32)
+    d2 = np.concatenate([d1[:30] - 1, 255 - rng.integers(0, 4, (70, d))])
+    d2 = d2.astype(np.float32)
+    assert 2 * (d1 ** 2).sum(1).min() > 2 ** 24
+    mask = (rng.random((60, 100)) < 0.5) if masked else None
+    got_i, got_d = _port(d1.astype(np.uint8), d2.astype(np.uint8), 100, mask)
+    ref_i, ref_d = _twin(d1, d2, 100, mask)
+    np.testing.assert_array_equal(got_d, ref_d)
+    finite = np.isfinite(ref_d[:, 0])
+    np.testing.assert_array_equal(got_i[finite], ref_i[finite])
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+def test_top2_uint8_wider_than_exact(masked):
+    """uint8 descriptors of width 300 (the float32 kernel's route on the
+    card): float32 sums may round, so the plain twin is held against the
+    JAX package's jnp twin within 1e-6 of the row's sq1 + sq2 scale, and
+    on indices where the best leads the second by more than that."""
+    d1, d2, mask = _inputs("uint8", seed=5, n=64, m=300, d=300)
+    d1, d2 = 160 + d1 % 96, 160 + d2 % 96  # large norms: sums above 2^24
+    mask = mask if masked else None
+    got_i, got_d = _port(d1.astype(np.uint8), d2.astype(np.uint8), 290, mask)
+    ref_i, ref_d = _twin(d1, d2, 290, mask)
+    scale = (d1.astype(np.float64) ** 2).sum(1)[:, None] + \
+        (d2[:290].astype(np.float64) ** 2).sum(1).max()
+    assert scale.max() > 2 ** 24  # the sums do round here
+    finite = np.isfinite(ref_d)
+    np.testing.assert_array_equal(np.isfinite(got_d), finite)
+    assert np.all(np.abs(got_d[finite] - ref_d[finite])
+                  <= 1e-6 * np.broadcast_to(scale, ref_d.shape)[finite])
+    clear = (ref_d[:, 1] - ref_d[:, 0]) > 1e-6 * scale[:, 0]
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(got_i[clear], ref_i[clear])
+
+
 def test_cuda_tensor_never_takes_the_plain_path():
     """A tensor on a device other than the CPU goes to the kernel or
     raises; here a meta tensor stands for one the wrapper cannot serve."""
