@@ -5,14 +5,17 @@
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
  1. build the CUDA kernels of opensfm_tpu_torch/csrc/ with nvcc (sm_90a),
-    one nvcc per source, all at once; print ptxas's registers and spills
-    (the tensor-core top-2 kernels must not spill);
+    one nvcc per source, all at once, beside a probe of the f64 mma.sync
+    shapes ptxas takes; print ptxas's registers and spills (the tensor-core
+    top-2 kernels, the f64 tensor-core product and the residual/Jacobian
+    kernels must not spill);
  2. hold every kernel against its plain PyTorch version on the card, in f32
     and f64, for all five losses: the residual/Jacobian and cost kernels in
-    the canonical T=8 layout at O = 262,144 and in a ragged gathered layout,
-    with padded slots; the dense-layout assembly, back-substitution and cost
-    kernels on the 64 x 8,192 dense grid with dead slots, fixed instances and
-    points and point priors;
+    the canonical T=8 layout at O = 262,144, in a ragged gathered layout,
+    and at O = 262,147 (a partial last block), with padded slots; the
+    dense-layout assembly, back-substitution and cost kernels on the
+    64 x 8,192 dense grid and the ragged grids DENSE_RAGGED, with dead
+    slots, fixed instances and points and point priors;
  3. the `bundle` command, through the command runner, on a synthetic mono
     perspective map of 256 shots x 32,768 points x tracks of 8 (f64, the
     product default), with the kernels' launch counts read around it;
@@ -26,6 +29,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     PyTorch yardstick where there is one;
  7. torch.profiler: device time by kernel over one warm LM trial at the
     bundle shape and at the dense shape, and a warm solve's time per trial;
+    the dense assembly's four sub-kernels per call (f64 and f32) and the
+    product step's yardstick, torch.mm(bmat.T, bmat) on the same f64 bmat;
  8. the top-2 descriptor search kernel against its plain version on the
     card: unmasked and masked, at 8,192 x 8,192 x 128 on uint8 descriptors
     (the tensor-core kernel, bitwise equal), on uint8 ones of width 200
@@ -140,14 +145,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def kernel_inputs(problem, dtype, device, ragged: bool, seed: int):
+def kernel_inputs(problem, dtype, device, ragged, seed: int):
     """The kernels' inputs from a problem: the canonical layout as it is,
-    with ~5% of the slots padded (inv_sd = 0, uv = 0); or, `ragged`, a
+    with ~5% of the slots padded (inv_sd = 0, uv = 0); or, `ragged` True, a
     random gathered subset of 100,003 observations (fewer for a small
-    problem)."""
+    problem); or, `ragged` "tail", the canonical layout and 3 more
+    observations drawn from it (O = 262,147 at the bundle shape: not a
+    multiple of the residual/Jacobian kernel's 128-observation block)."""
     rng = np.random.default_rng(seed)
     O = len(problem.obs_uv)
-    if ragged:
+    if ragged == "tail":
+        sel = np.concatenate([np.arange(O), rng.choice(O, 3)])
+    elif ragged:
         sel = np.sort(rng.choice(O, size=min(100_003, O // 2 + 1),
                                  replace=False))
     else:
@@ -184,7 +193,7 @@ def check_kernels(problem, dev="cuda"):
     dev = torch.device(dev)
     for dtype in (torch.float64, torch.float32):
         tol = TOL[dtype]
-        for ragged in (False, True):
+        for ragged in (False, True, "tail"):
             args = kernel_inputs(problem, dtype, dev, ragged, seed=7)
             for loss in LOSSES:
                 out = K.fused_residual_jacobian(*args, loss, 1.0)
@@ -217,7 +226,10 @@ def check_kernels(problem, dev="cuda"):
                 # Determinism: the same inputs give the same bits.
                 check(float(K.fused_cost(*args, loss, 1.0)) == float(tot),
                       "fused_cost is deterministic")
-            layout = "ragged" if ragged else "canonical"
+            layout = {False: "canonical", True: "ragged gathered",
+                      "tail": "canonical + 3"}[ragged]
+            check(ragged != "tail" or args[6].shape[0] % 128 != 0,
+                  "the tail layout ends in a partial block")
             log(f"  {str(dtype)[6:]} {layout} O={args[6].shape[0]}: "
                 f"5 losses within tolerance")
     # An empty problem costs 0 and launches nothing.
@@ -265,14 +277,23 @@ def dense_kernel_inputs(problem, dtype, device, seed: int):
     return base, extras, dx
 
 
-def check_dense_kernels(problem, dev="cuda"):
+# Ragged dense grids for phase 2 beside the 64 x 8,192 lane, as (NI, NP):
+# 6 NI = 222 (not a multiple of the 64-wide product tile) with K = 3,000
+# (not a multiple of the 16-row stage or of the split); the largest accepted
+# NI (6 NI = 1,536); one instance.
+DENSE_RAGGED = ((37, 1000), (256, 1280), (1, 128))
+
+
+def check_dense_kernels(problems, dev="cuda"):
     """Phase 2, dense layout: the assembly, back-substitution and dense cost
-    kernels against their plain versions on the card; the same inputs give
-    the same bits twice."""
+    kernels against their plain versions on the card, on each problem's
+    grid; the same inputs give the same bits twice, and S_II is exactly
+    symmetric."""
     from opensfm_tpu_torch.ops.kernels import ba_assemble as A
 
     worst = {name: {} for name in DENSE_KERNELS}
-    for dtype in (torch.float64, torch.float32):
+    for problem, dtype in [(p, d) for p in problems
+                           for d in (torch.float64, torch.float32)]:
         tol = TOL_DENSE[dtype]
         key = str(dtype)[6:]
         base, extras, dx = dense_kernel_inputs(problem, dtype,
@@ -620,6 +641,67 @@ def profile_trial(problem, label):
     trials = n["fused_cost"] + n["fused_cost_dense"] - 1
     log(f"  {label}: warm bundle_adjust {wall:.3f} s, {res.iterations} accepted of "
         f"{trials} trials, {wall / max(trials, 1) * 1e3:.1f} ms per trial")
+
+
+def trace_schur_assembly(problem, calls: int = 5):
+    """Phase 7: `fused_schur_assembly`'s four sub-kernels, device ms per call
+    from a trace of `calls` calls, f64 and f32; and the product step's
+    yardstick on the same f64 bmat: torch.mm(bmat.T, bmat) (cuBLAS on the
+    f64 tensor cores), traced alike and timed with `_time_ms`.  The port
+    never calls it, and it is no library form of row 4: it computes the
+    product step alone.  Returns {dtype: {sub-kernel: ms}} and the
+    yardstick's ms."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from opensfm_tpu_torch.ops.kernels import ba_assemble as A
+
+    loss = "SoftLOneLoss"
+
+    def traced(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        _, _, rows = device_time(prof)
+        out = {}
+        for ms, _, name in rows:
+            hit = re.search(r"(\w+_kernel)\b", name)
+            key = hit.group(1) if hit else name[:60]
+            out[key] = out.get(key, 0.0) + ms / calls
+        return out
+
+    split = {}
+    for dtype in (torch.float64, torch.float32):
+        base, extras, _ = dense_kernel_inputs(problem, dtype,
+                                              torch.device("cuda"), seed=13)
+        key = str(dtype)[6:]
+        split[key] = traced(
+            lambda: A.fused_schur_assembly(*base, *extras, loss, 1.0))
+        log(f"  fused_schur_assembly {key}, device ms per call ({calls} "
+            f"calls traced): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in split[key].items()))
+        check(any("syrk_dmma_kernel" in k for k in split[key])
+              == (dtype == torch.float64),
+              f"{key}: the product runs on the f64 tensor cores in f64 only")
+    base, extras, _ = dense_kernel_inputs(problem, torch.float64,
+                                          torch.device("cuda"), seed=13)
+    bmat = A.schur_terms_plain(*base, *extras, loss, 1.0)[1].contiguous()
+    s_ii = A.fused_schur_assembly(*base, *extras, loss, 1.0)[1]
+    rel = _rel(torch.mm(bmat.T, bmat), s_ii)
+    check(rel <= TOL_DENSE[torch.float64]["out"],
+          f"S_II against torch.mm(bmat.T, bmat): rel {rel:.3g}")
+    mm_trace = sum(traced(lambda: torch.mm(bmat.T, bmat)).values())
+    mm_ms = _time_ms(lambda: torch.mm(bmat.T, bmat))
+    log(f"  product yardstick, f64 bmat {list(bmat.shape)}: syrk_dmma_kernel "
+        f"{split['float64']['syrk_dmma_kernel']:.4f} ms per call (trace); "
+        f"torch.mm(bmat.T, bmat) {mm_trace:.4f} ms (trace), {mm_ms:.4f} ms "
+        f"(L2 flushed, median of 25); S_II within {rel:.3g} of it")
+    return split, mm_ms
 
 
 # --------------------------------------------------------------------------
@@ -1133,6 +1215,46 @@ def ptxas_spills(ptxas: str):
     return out
 
 
+# f64 mma.sync shapes: (A, B, C/D) registers per thread.  m8n8k4 is sm_80's;
+# the m16n8 ones are sm_90's (fused_schur_assembly's product uses m16n8k8).
+DMMA_SHAPES = {"m8n8k4": (1, 1, 2), "m16n8k4": (2, 1, 4),
+               "m16n8k8": (4, 2, 4), "m16n8k16": (8, 4, 4)}
+
+
+def start_dmma_probe():
+    """Starts one nvcc per f64 mma.sync shape on a one-instruction kernel;
+    returns {shape: process}: which shapes the installed ptxas takes."""
+    from opensfm_tpu_torch.ops.kernels import _build
+
+    probes = {}
+    for shape, (na, nb, nc) in DMMA_SHAPES.items():
+        ops, k = [], 0
+        for n in (nc, na, nb):
+            ops.append("{" + ", ".join(f"%{k + i}" for i in range(n)) + "}")
+            k += n
+        outs = ", ".join('"+d"(c[%d])' % i for i in range(nc))
+        ins = ", ".join(['"d"(a[%d])' % i for i in range(na)]
+                        + ['"d"(b[%d])' % i for i in range(nb)])
+        src = os.path.join(WORK, f"dmma_{shape}.cu")
+        with open(src, "w") as f:
+            f.write(
+                "__global__ void probe(double* p) {\n"
+                f"  double a[{na}], b[{nb}], c[{nc}];\n"
+                f"  for (int i = 0; i < {na}; ++i) a[i] = p[i];\n"
+                f"  for (int i = 0; i < {nb}; ++i) b[i] = p[8 + i];\n"
+                f"  for (int i = 0; i < {nc}; ++i) c[i] = p[16 + i];\n"
+                f'  asm volatile("mma.sync.aligned.{shape}.row.col.f64.f64.'
+                f'f64.f64 {ops[0]}, {ops[1]}, {ops[2]}, {ops[0]};"\n'
+                f"      : {outs}\n      : {ins});\n"
+                f"  for (int i = 0; i < {nc}; ++i) p[16 + i] = c[i];\n"
+                "}\n")
+        probes[shape] = subprocess.Popen(
+            [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-cubin", "-o", src[:-3] + ".cubin", src],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    return probes
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1163,8 +1285,12 @@ def main() -> int:
 
     log("phase 1: build (one nvcc per source, all at once)")
     t0 = time.perf_counter()
+    probes = start_dmma_probe()
     libs = _build.build_all([K.SOURCE, A.SOURCE, T.SOURCE, V.SOURCE])
     log(f"  built in {time.perf_counter() - t0:.1f} s")
+    takes = {shape: p.wait() == 0 for shape, p in probes.items()}
+    log(f"  ptxas takes these f64 mma.sync shapes (sm_90a): {takes}")
+    check(takes["m16n8k8"], "ptxas takes mma.sync m16n8k8 .f64")
     for source, lib in libs.items():
         secs, ptxas = _build.BUILD_LOG[source]
         log(f"  {source} -> {os.path.relpath(lib, REPO)} (nvcc {secs:.1f} s)")
@@ -1177,13 +1303,23 @@ def main() -> int:
         f"{list(u8.values())}")
     check(len(u8) == 2 and all(v == (0, 0) for v in u8.values()),
           "the tensor-core top-2 kernels (unmasked, masked) do not spill")
+    # The f64 tensor-core product of row 4 and row 2's 10 variants.
+    redesigned = {k: v for src in (A.SOURCE, K.SOURCE) for k, v in
+                  ptxas_spills(_build.BUILD_LOG[src][1]).items()
+                  if "syrk_dmma_kernel" in k or "resjac_kernel" in k}
+    log(f"  DMMA product and resjac kernels' spills (stores, loads): "
+        f"{sorted(set(redesigned.values()))} over {len(redesigned)} kernels")
+    check(len(redesigned) == 11
+          and all(v == (0, 0) for v in redesigned.values()),
+          "the DMMA product and the resjac kernels do not spill")
 
     log("phase 2: kernels vs plain on the card")
     t0 = time.perf_counter()
     big = sb.make_problem(256, 32768, track_window=8)
     dense64 = sb.make_problem(64, 8192)
     worst = check_kernels(big)
-    worst.update(check_dense_kernels(dense64))
+    worst.update(check_dense_kernels(
+        [dense64] + [sb.make_problem(ni, n_p) for ni, n_p in DENSE_RAGGED]))
     log(f"  done in {time.perf_counter() - t0:.1f} s; worst abs err {worst}")
 
     log("phase 3: bundle command, 256 x 32768 x K=8, f64")
@@ -1208,6 +1344,7 @@ def main() -> int:
     log("phase 7: profile of one LM trial")
     profile_trial(big, "bundle 256 x 32768 x K=8")
     profile_trial(dense64, "dense 64 x 8192")
+    schur_split, product_mm_ms = trace_schur_assembly(dense64)
 
     log("phase 8: top-2 search kernel vs plain on the card")
     t0 = time.perf_counter()
@@ -1304,6 +1441,9 @@ def main() -> int:
             ms_f32=f32["ms"], plain_ms_f32=f32["plain_ms"],
             bound_ms_f32=f32["bound_ms"], library_ms_f32=f32["library_ms"],
         ))
+        if name == "fused_schur_assembly":
+            kernels[-1].update(sub_kernel_ms=schur_split,
+                               product_step_torch_mm_ms=product_mm_ms)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,25 +20,27 @@
 // split in two passes, each followed by a sum of its block partials in a
 // fixed order (no atomics, so the result is the same on every run):
 //  1. assemble_kernel: one block per chunk of points, one thread per instance
-//     slot.  Each thread runs the chain of its slot for each point of the
-//     chunk; the per-point 3x3 sums are a block reduction; the thread writes
+//     slot.  Each thread computes its slot's rotation coefficients once, then
+//     runs the chain of its slot for each point of the chunk; the per-point
+//     3x3 sums are a warp reduce-scatter and one barrier; the thread writes
 //     its slot's column of B (bmat [3 NP, 6 NI]) and accumulates its slot's
 //     81 direct and RHS sums in its own column of shared memory; the block's
 //     sums go out as one partial per chunk (aux_part [chunks, 96, NI]), which
-//     sum_chunks_kernel adds up in chunk order.
-//  2. syrk_kernel: S_II = bmat^T bmat, only the 64 x 64 tiles on and below
-//     the diagonal, split over K = 3 NP so that enough blocks fill the card;
-//     syrk_reduce_kernel adds the splits in order and mirrors the upper
-//     tiles.  The product takes FMAs (fma()) in the working type.
+//     sum_chunks_kernel adds up in chunk order, in two levels.
+//  2. S_II = bmat^T bmat, only the 64 x 64 tiles on and below the diagonal,
+//     split over K = 3 NP so that enough blocks fill the card: in f64 on the
+//     f64 tensor cores (syrk_dmma_kernel, mma.sync m16n8k8 .f64), in f32 on
+//     FP32 FMAs (syrk_kernel; full FP32, no TF32); syrk_reduce_kernel adds
+//     the splits in order and mirrors the lower triangle above.
 //
 // What bounds them on the card.  At the 64 x 8,192 dense lane in f64 the
 // assembly reads ~13 MB of observations and writes 75 MB of bmat that the
 // product reads back; the product is 3.6 GFLOP (the lower half of a
 // [384, 24,576] x [24,576, 384] product): operations bound it, ~0.05 ms at
-// 67 TFLOP/s.  The per-point block reductions (two barriers per point) and
-// the plain (no tensor core) tiled product keep this first version well above
-// that bound; PERF.md has its times.  Keeping bmat out of device memory, as
-// the TPU kernel does, needs the product fused into pass 1 and is later work.
+// 67 TFLOP/s.  The slot pass is held by its registers (~255 a thread, so
+// few warps in flight) and its per-point reduction; PERF.md has the times of
+// each part.  Keeping bmat out of device memory, as the TPU kernel does,
+// needs the product fused into pass 1 and is later work.
 //
 // fused_back_substitute recomputes the chain instead of keeping the
 // Jacobians: dx_p = Hinv (bp - sum_a Jp^T (J_pose dx_a + J_cam dx_cam)), one
@@ -54,6 +56,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "ba_chain.cuh"
 
 namespace {
@@ -63,6 +67,8 @@ constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kAuxRows = 96;      // aux rows (the Pallas kernel's layout)
 constexpr int kPt = 16;           // out_pt columns
 constexpr int kAcc = 81;          // per-slot accumulators of assemble_kernel
+constexpr int kPointSums = 18;    // per-point sums over the slots: Hpp, bp, Vg
+constexpr int kChunkGroup = 32;   // chunk partials per first-level group sum
 constexpr int kTile = 64;         // syrk output tile
 constexpr int kTileK = 16;        // syrk depth per shared-memory stage
 
@@ -71,30 +77,63 @@ __host__ __device__ constexpr int tri(int n, int x, int y) {
   return x * n - x * (x - 1) / 2 + (y - x);
 }
 
-// Block-wide sum of N values per thread; every thread gets the totals.
-// Warp trees by shuffles, then the warp partials in warp order: the same
-// inputs give the same bits on every run.  `sh` holds kMaxWarps * N values.
-template <typename T, int N>
-__device__ __forceinline__ void block_allreduce(T (&x)[N], T* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
+// Warp reduce-scatter of N <= 32 values per lane: five halving steps, each
+// lane keeping half of the current values and adding its partner's copy of
+// them (keep + received, a fixed order), 20 exchanges for N = 18 where a
+// butterfly per value takes 5 N.  Afterwards x[0] of each lane with
+// scatter_value<N>(lane) = i >= 0 holds the warp's sum of value i.  C is the
+// values still held per lane, O the partner's lane bit.
+template <typename T, int N, int C = N, int O = 16>
+__device__ __forceinline__ void warp_reduce_scatter(T (&x)[N]) {
+  if constexpr (O > 0) {
+    constexpr int lo = (C + 1) / 2;
+    const bool up = (threadIdx.x & O) != 0;
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    T v = x[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      v += __shfl_down_sync(0xffffffffu, v, off);
+    for (int i = 0; i < lo; ++i) {
+      const T hi_v = lo + i < C ? x[lo + i] : T(0);
+      const T send = up ? x[i] : hi_v;
+      const T keep = up ? hi_v : x[i];
+      x[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
     }
-    if (lane == 0) sh[warp * N + i] = v;
+    warp_reduce_scatter<T, N, lo, O / 2>(x);
   }
+}
+
+// The value whose warp sum `lane` holds after warp_reduce_scatter<N>, or -1:
+// the upper half of each step's lanes takes the values from lo on.
+template <int N>
+__host__ __device__ constexpr int scatter_value(int lane) {
+  int off = 0, n = N, c = N;
+  for (int o = 16; o > 0; o >>= 1) {
+    const int lo = (c + 1) / 2;
+    if (lane & o) {
+      off += lo;
+      n -= lo;
+    } else if (n > lo) {
+      n = lo;
+    }
+    c = lo;
+  }
+  return n >= 1 ? off : -1;
+}
+
+// Block-wide sum of N values per thread; every thread gets the totals: a
+// warp reduce-scatter, then the warp partials in warp order, so the same
+// inputs give the same bits on every run.  One barrier: `sh` must not be
+// written again before every thread has passed the next barrier.
+template <typename T, int N>
+__device__ __forceinline__ void block_allreduce(T (&x)[N], T (*sh)[N]) {
+  const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  const int mine = scatter_value<N>(threadIdx.x & 31);
+  warp_reduce_scatter(x);
+  if (mine >= 0) sh[warp][mine] = x[0];
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    T v = sh[i];
-    for (int w = 1; w < n_warps; ++w) v += sh[w * N + i];
-    x[i] = v;
+    T t = sh[0][i];
+    for (int w = 1; w < n_warps; ++w) t += sh[w][i];
+    x[i] = t;
   }
-  __syncthreads();
 }
 
 template <typename T>
@@ -147,16 +186,17 @@ __global__ void __launch_bounds__(kMaxThreads)
                     const T* __restrict__ points,
                     const T* __restrict__ obs_uv,
                     const T* __restrict__ obs_inv_sd,
-                    const T* __restrict__ opt_inst,
-                    const T* __restrict__ opt_cam,
-                    const T* __restrict__ opt_points,
+                    const unsigned char* __restrict__ opt_inst,
+                    const unsigned char* __restrict__ opt_cam,
+                    const unsigned char* __restrict__ opt_points,
                     const T* __restrict__ point_prior,
                     const T* __restrict__ pp_inv, T lam1, int ni, int np,
                     int chunk, T a2, T* __restrict__ out_pt,
                     T* __restrict__ bmat, T* __restrict__ aux_part) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* acc = reinterpret_cast<T*>(smem_raw);  // [kAcc][blockDim.x]
-  __shared__ T red_sh[kMaxWarps * 18];
+  // The per-point sums' warp partials, double-buffered: one barrier a point.
+  __shared__ T red_sh[2][kMaxWarps][kPointSums];
   const int nt = blockDim.x;
   const int a = threadIdx.x;
   const bool valid = a < ni;
@@ -169,23 +209,27 @@ __global__ void __launch_bounds__(kMaxThreads)
   T opt_i = T(0);
 #pragma unroll
   for (int k = 0; k < 6; ++k) v[k] = valid ? inst[6 * a + k] : T(0);
-  if (valid) opt_i = opt_inst[a];
+  if (valid) opt_i = opt_inst[a] ? T(1) : T(0);
 #pragma unroll
   for (int k = 0; k < 3; ++k) v[6 + k] = cam[k];
-  const T opt_c[3] = {opt_cam[0], opt_cam[1], opt_cam[2]};
+  const T opt_c[3] = {opt_cam[0] ? T(1) : T(0), opt_cam[1] ? T(1) : T(0),
+                      opt_cam[2] ? T(1) : T(0)};
+  // The slot's rotation coefficients (sqrt, sin, cos, divides), once.
+  const Rodrigues<T> rod(v[0], v[1], v[2], true);
 
   const long long p_begin = (long long)blockIdx.x * chunk;
   const long long p_end =
       p_begin + chunk < (long long)np ? p_begin + chunk : (long long)np;
-  for (long long p = p_begin; p < p_end; ++p) {
-    const T optp = opt_points[p];
+  int buf = 0;
+  for (long long p = p_begin; p < p_end; ++p, buf ^= 1) {
+    const T optp = opt_points[p] ? T(1) : T(0);
     T J0[12], J1[12];
     T r0 = T(0), r1 = T(0);
     if (valid) {
 #pragma unroll
       for (int k = 0; k < 3; ++k) v[9 + k] = points[3 * p + k];
       T q0, q1;
-      chain_fwd_jac(v, q0, q1, J0, J1);
+      chain_fwd_jac(v, rod, q0, q1, J0, J1);
       const long long o = p * ni + a;
       const T isd = obs_inv_sd[o];
       const T e0 = (q0 - obs_uv[2 * o]) * isd;
@@ -216,7 +260,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
 
     // Per-point sums over the slots: Hpp (upper), bp, Vg = Jc^T Jp.
-    T s[18];
+    T s[kPointSums];
 #pragma unroll
     for (int x = 0; x < 3; ++x) {
 #pragma unroll
@@ -233,7 +277,9 @@ __global__ void __launch_bounds__(kMaxThreads)
         s[9 + 3 * y + j] = J0[6 + y] * J0[9 + j] + J1[6 + y] * J1[9 + j];
       }
     }
-    block_allreduce<T, 18>(s, red_sh);
+    // The buffer written here was last read before the previous point's
+    // barrier.
+    block_allreduce(s, red_sh[buf]);
 
     // Point priors, damping, the inverse and its Cholesky factor (every
     // thread computes the same values).
@@ -272,18 +318,11 @@ __global__ void __launch_bounds__(kMaxThreads)
     const T il11 = l11 > tiny ? T(1) / l11 : T(0);
     const T l21 = (hi[4] - l20 * l10) * il11;
     const T l22 = sqrt(clamp0(hi[5] - l20 * l20 - l21 * l21));
-    T Vg[3][3], Ug[3][3], Cg[3][3];
+    T Vg[3][3], Cg[3][3];
 #pragma unroll
     for (int y = 0; y < 3; ++y) {
 #pragma unroll
       for (int j = 0; j < 3; ++j) Vg[y][j] = s[9 + 3 * y + j];
-    }
-#pragma unroll
-    for (int y = 0; y < 3; ++y) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        Ug[y][k] = Vg[y][0] * H[0][k] + Vg[y][1] * H[1][k] + Vg[y][2] * H[2][k];
-      }
       Cg[y][0] = Vg[y][0] * l00 + Vg[y][1] * l10 + Vg[y][2] * l20;
       Cg[y][1] = Vg[y][1] * l11 + Vg[y][2] * l21;
       Cg[y][2] = Vg[y][2] * l22;
@@ -299,24 +338,61 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
 #pragma unroll
       for (int i = 12; i < kPt; ++i) pt[i] = T(0);
+      // The camera-family Schur terms, once per point (slot 0 is valid).
+#pragma unroll
+      for (int y = 0; y < 3; ++y) {
+        ac[(72 + y) * nt] +=
+            Vg[y][0] * hib[0] + Vg[y][1] * hib[1] + Vg[y][2] * hib[2];
+      }
+      T Ug[3][3];
+#pragma unroll
+      for (int y = 0; y < 3; ++y) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          Ug[y][k] =
+              Vg[y][0] * H[0][k] + Vg[y][1] * H[1][k] + Vg[y][2] * H[2][k];
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < 3; ++x) {
+#pragma unroll
+        for (int y = x; y < 3; ++y) {
+          ac[(75 + tri(3, x, y)) * nt] +=
+              Ug[x][0] * Vg[y][0] + Ug[x][1] * Vg[y][1] + Ug[x][2] * Vg[y][2];
+        }
+      }
     }
     if (!valid) continue;
 
-    // This slot's couplings Ga = Ji^T Jp and Schur factor B = Ga L.
-    T Ga[6][3], B[6][3];
+    // This slot's couplings Ga = Ji^T Jp: its Schur right-hand side, then
+    // the Schur factor B = Ga L (written to bmat) and its coupling to the
+    // camera, so that Ga and B are not live at once with the direct sums.
+    T B[6][3];
 #pragma unroll
     for (int x = 0; x < 6; ++x) {
+      T Ga[3];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) Ga[x][j] = J0[x] * J0[9 + j] + J1[x] * J1[9 + j];
-      B[x][0] = Ga[x][0] * l00 + Ga[x][1] * l10 + Ga[x][2] * l20;
-      B[x][1] = Ga[x][1] * l11 + Ga[x][2] * l21;
-      B[x][2] = Ga[x][2] * l22;
+      for (int j = 0; j < 3; ++j) Ga[j] = J0[x] * J0[9 + j] + J1[x] * J1[9 + j];
+      const T direct = J0[x] * r0 + J1[x] * r1;
+      const T gsch = Ga[0] * hib[0] + Ga[1] * hib[1] + Ga[2] * hib[2];
+      ac[(63 + x) * nt] += direct - gsch;
+      B[x][0] = Ga[0] * l00 + Ga[1] * l10 + Ga[2] * l20;
+      B[x][1] = Ga[1] * l11 + Ga[2] * l21;
+      B[x][2] = Ga[2] * l22;
     }
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       T* row = bmat + (3 * p + k) * ni6 + a;
 #pragma unroll
       for (int x = 0; x < 6; ++x) row[x * ni] = B[x][k];
+    }
+#pragma unroll
+    for (int x = 0; x < 6; ++x) {
+#pragma unroll
+      for (int y = 0; y < 3; ++y) {
+        ac[(45 + 3 * x + y) * nt] +=
+            B[x][0] * Cg[y][0] + B[x][1] * Cg[y][1] + B[x][2] * Cg[y][2];
+      }
     }
 
     // Direct blocks and right-hand sides of this slot.
@@ -332,8 +408,6 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
       for (int y = 0; y < 3; ++y) {
         ac[(21 + 3 * x + y) * nt] += J0[x] * J0[6 + y] + J1[x] * J1[6 + y];
-        ac[(45 + 3 * x + y) * nt] +=
-            B[x][0] * Cg[y][0] + B[x][1] * Cg[y][1] + B[x][2] * Cg[y][2];
       }
     }
 #pragma unroll
@@ -345,29 +419,8 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
     }
 #pragma unroll
-    for (int x = 0; x < 6; ++x) {
-      const T direct = J0[x] * r0 + J1[x] * r1;
-      const T gsch = Ga[x][0] * hib[0] + Ga[x][1] * hib[1] + Ga[x][2] * hib[2];
-      ac[(63 + x) * nt] += direct - gsch;
-    }
-#pragma unroll
     for (int y = 0; y < 3; ++y) {
       ac[(69 + y) * nt] += J0[6 + y] * r0 + J1[6 + y] * r1;
-    }
-    if (a == 0) {  // the camera-family Schur terms, once per point
-#pragma unroll
-      for (int y = 0; y < 3; ++y) {
-        ac[(72 + y) * nt] +=
-            Vg[y][0] * hib[0] + Vg[y][1] * hib[1] + Vg[y][2] * hib[2];
-      }
-#pragma unroll
-      for (int x = 0; x < 3; ++x) {
-#pragma unroll
-        for (int y = x; y < 3; ++y) {
-          ac[(75 + tri(3, x, y)) * nt] +=
-              Ug[x][0] * Vg[y][0] + Ug[x][1] * Vg[y][1] + Ug[x][2] * Vg[y][2];
-        }
-      }
     }
   }
 
@@ -397,26 +450,39 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// out[i] = sum over c of part[c * n + i], in chunk order.
+// out[g * n + i] = the sum over chunks c of group g = blockIdx.y (c from
+// g * group to the smaller of (g + 1) * group and n_chunks) of part[c * n + i],
+// in chunk order.  Run twice, groups of kChunkGroup chunks and then the group
+// sums, so ~16 times more threads share the sum than one per element.
 template <typename T>
 __global__ void sum_chunks_kernel(const T* __restrict__ part, int n_chunks,
-                                  long long n, T* __restrict__ out) {
+                                  int group, long long n, T* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const int c0 = blockIdx.y * group;
+  const int c1 = c0 + group < n_chunks ? c0 + group : n_chunks;
   T acc = T(0);
-  for (int c = 0; c < n_chunks; ++c) acc += part[(long long)c * n + i];
-  out[i] = acc;
+  for (int c = c0; c < c1; ++c) acc += part[(long long)c * n + i];
+  out[blockIdx.y * n + i] = acc;
 }
 
-// part[split] = bmat[k-range]^T bmat[k-range] on the output tiles on and below
-// the diagonal; bmat is [K, n] row-major.  256 threads, each 4 x 4 outputs.
+// Output tile (tr, tc), tr >= tc, of product block b: the lower tiles row by
+// row (ops/kernels/ba_assemble.py's product_tiles mirrors this order).
+__device__ __forceinline__ void lower_tile(int b, int& tr, int& tc) {
+  tr = 0;
+  while ((tr + 1) * (tr + 2) / 2 <= b) ++tr;
+  tc = b - tr * (tr + 1) / 2;
+}
+
+// f32: part[split] = bmat[k-range]^T bmat[k-range] on the output tiles on and
+// below the diagonal; bmat is [K, n] row-major.  256 threads, each 4 x 4
+// outputs, FMAs on the FP32 pipes (full FP32: no TF32).
 template <typename T>
 __global__ void __launch_bounds__(256)
     syrk_kernel(const T* __restrict__ bmat, long long K, int n,
                 long long k_split, T* __restrict__ part) {
-  int tr = 0;
-  while ((tr + 1) * (tr + 2) / 2 <= (int)blockIdx.x) ++tr;
-  const int tc = blockIdx.x - tr * (tr + 1) / 2;
+  int tr, tc;
+  lower_tile(blockIdx.x, tr, tc);
   const int i0 = tr * kTile, j0 = tc * kTile;
   const long long k0 = (long long)blockIdx.y * k_split;
   const long long k1 = k0 + k_split < K ? k0 + k_split : K;
@@ -464,24 +530,210 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// s_ii[i, j] = sum over splits of part at (i, j), read from the lower tile
-// for an upper-tile (i, j): the result is exactly symmetric.
-template <typename T>
-__global__ void syrk_reduce_kernel(const T* __restrict__ part, int n,
-                                   int n_split, T* __restrict__ s_ii) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long nn = (long long)n * n;
-  if (idx >= nn) return;
-  int i = (int)(idx / n), j = (int)(idx % n);
-  if (i / kTile < j / kTile) {
-    const int t = i;
-    i = j;
-    j = t;
+// ---------------------------------------------------------------------------
+// f64: the product on the f64 tensor cores (DMMA, mma.sync m16n8k8 .f64).
+// A block of 4 warps owns one 64 x 64 lower output tile and one K split; warp
+// w computes the 32 x 32 quadrant (w / 2, w % 2) as 2 x 4 m16n8 fragments.
+// Both operands are column stripes of bmat (A[i][k] = bmat[k][i0 + i]), so a
+// stage is kDmmaK rows of 64 doubles per stripe, 512 contiguous bytes a row,
+// copied by cp.async in 16-byte pieces (consecutive threads on consecutive
+// addresses) into a ring of kDmmaStages stages.  A diagonal tile loads its one
+// stripe once and skips its strictly upper quadrant, which the reduce never
+// reads.  Rows are padded to kDmmaLd = 68 doubles: a fragment's half-warp
+// reads (k0 + t) * 68 + g, t, g < 4, i.e. 16 distinct 8-byte bank pairs, so
+// the LDS.64 fragment loads are conflict-free (ldmatrix has no 64-bit form).
+// Ragged edges: columns >= n and rows >= the split's end are zero-filled by
+// cp.async (source size 0); n = 6 NI is even, so a 16-byte piece is wholly in
+// or out.  Every sum runs in a fixed order (k-steps in order within a split,
+// splits in order in the reduce): the same inputs give the same bits.
+constexpr int kDmmaK = 16;       // k rows per stage
+constexpr int kDmmaStages = 3;   // cp.async ring depth
+constexpr int kDmmaLd = kTile + 4;  // padded row, in doubles
+constexpr int kDmmaThreads = 128;
+constexpr size_t kDmmaSmem =
+    sizeof(double) * kDmmaStages * 2 * kDmmaK * kDmmaLd;  // 52,224 B
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// d += a (16 x 8, row) * b (8 x 8, col), f64, one warp.  Fragments (g = lane
+// / 4, t = lane % 4): a[i] = A[g + 8 (i % 2)][t + 4 (i / 2)], b[i] =
+// B[t + 4 i][g], d[i] = D[g + 8 (i / 2)][2 t + i % 2].
+__device__ __forceinline__ void dmma_16x8x8(double (&d)[4],
+                                            const double (&a)[4],
+                                            const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// One stage: rows [kb, kb + kDmmaK) of the stripes at columns i0 (to As) and
+// j0 (to Bs, unless diag).
+__device__ __forceinline__ void dmma_load_stage(
+    const double* __restrict__ bmat, long long kb, long long k1, int n, int i0,
+    int j0, bool diag, double* As, double* Bs) {
+  constexpr int kPieces = kDmmaK * kTile / 2;  // 16-byte pieces per stripe
+#pragma unroll
+  for (int r = 0; r < kPieces / kDmmaThreads; ++r) {
+    const int piece = threadIdx.x + r * kDmmaThreads;
+    const int kk = piece / (kTile / 2), c = 2 * (piece % (kTile / 2));
+    const long long k = kb + kk;
+    const bool in_k = k < k1;
+    const int ia = i0 + c;
+    cp_async16(As + kk * kDmmaLd + c, in_k && ia < n ? bmat + k * n + ia : bmat,
+               in_k && ia < n ? 16 : 0);
+    if (!diag) {
+      const int jb = j0 + c;
+      cp_async16(Bs + kk * kDmmaLd + c,
+                 in_k && jb < n ? bmat + k * n + jb : bmat,
+                 in_k && jb < n ? 16 : 0);
+    }
   }
-  const long long src = (long long)i * n + j;
+}
+
+__global__ void __launch_bounds__(kDmmaThreads)
+    syrk_dmma_kernel(const double* __restrict__ bmat, long long K, int n,
+                     long long k_split, double* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* ring = reinterpret_cast<double*>(smem_raw);
+  int tr, tc;
+  lower_tile(blockIdx.x, tr, tc);
+  const bool diag = tr == tc;
+  const int i0 = tr * kTile, j0 = tc * kTile;
+  const long long k0 = (long long)blockIdx.y * k_split;
+  const long long k1 = k0 + k_split < K ? k0 + k_split : K;
+  const int n_steps = (int)((k1 - k0 + kDmmaK - 1) / kDmmaK);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  const bool idle = diag && wm < wn;  // the diagonal tile's upper quadrant
+  auto a_stage = [&](int s) { return ring + (2 * s) * kDmmaK * kDmmaLd; };
+  auto b_stage = [&](int s) {
+    return diag ? a_stage(s) : ring + (2 * s + 1) * kDmmaK * kDmmaLd;
+  };
+
+  double acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.0;
+    }
+  }
+
+#pragma unroll
+  for (int s = 0; s < kDmmaStages - 1; ++s) {
+    if (s < n_steps) {
+      dmma_load_stage(bmat, k0 + (long long)s * kDmmaK, k1, n, i0, j0, diag,
+                      a_stage(s), b_stage(s));
+    }
+    cp_async_commit();  // one group per stage, empty or not
+  }
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<kDmmaStages - 2>();
+    __syncthreads();  // the stage has landed; the oldest buffer is free
+    const int next = step + kDmmaStages - 1;
+    if (next < n_steps) {
+      const int s = next % kDmmaStages;
+      dmma_load_stage(bmat, k0 + (long long)next * kDmmaK, k1, n, i0, j0, diag,
+                      a_stage(s), b_stage(s));
+    }
+    cp_async_commit();
+    if (idle) continue;
+    const double* As = a_stage(step % kDmmaStages) + 32 * wm;
+    const double* Bs = b_stage(step % kDmmaStages) + 32 * wn;
+#pragma unroll
+    for (int kk = 0; kk < kDmmaK; kk += 8) {
+      double a[2][4], b[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[mi][i] = As[(kk + t + 4 * (i / 2)) * kDmmaLd + 16 * mi + g +
+                        8 * (i % 2)];
+        }
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          b[ni][i] = Bs[(kk + t + 4 * i) * kDmmaLd + 8 * ni + g];
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) dmma_16x8x8(acc[mi][ni], a[mi], b[ni]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (idle) return;
+  double* out = part + (long long)blockIdx.y * n * n;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + 32 * wm + 16 * mi + g + 8 * h;
+      if (i >= n) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int j = j0 + 32 * wn + 8 * ni + 2 * t;  // even; n is even
+        if (j < n) {
+          *reinterpret_cast<double2*>(out + (long long)i * n + j) =
+              make_double2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// s_ii = the sum over splits of part, in split order, on the lower triangle,
+// and its mirror above: s_ii[i][j] = s_ii[j][i] = sum_s part[s][max][min], so
+// the result is exactly symmetric and only the lower triangle of each partial
+// is read.  One block of 16 x 16 threads, one entry each, per lower 16 x 16
+// tile (300 blocks at 6 NI = 384); the mirror goes out through a shared-memory
+// transpose, so reads and writes coalesce.
+constexpr int kRedTile = 16;
+
+template <typename T>
+__global__ void __launch_bounds__(kRedTile * kRedTile)
+    syrk_reduce_kernel(const T* __restrict__ part, int n, int n_split,
+                       T* __restrict__ s_ii) {
+  __shared__ T tile[kRedTile][kRedTile + 1];
+  int tr, tc;
+  lower_tile(blockIdx.x, tr, tc);
+  const int tx = threadIdx.x % kRedTile, ty = threadIdx.x / kRedTile;
+  const long long nn = (long long)n * n;
+  int i = tr * kRedTile + ty, j = tc * kRedTile + tx;
   T acc = T(0);
-  for (int s = 0; s < n_split; ++s) acc += part[s * nn + src];
-  s_ii[idx] = acc;
+  if (i < n && j < n && (tr != tc || ty >= tx)) {
+    const long long src = (long long)i * n + j;
+#pragma unroll 4
+    for (int s = 0; s < n_split; ++s) acc += part[s * nn + src];
+    s_ii[src] = acc;
+  }
+  tile[ty][tx] = acc;
+  __syncthreads();
+  i = tc * kRedTile + ty;  // the mirror: row ty of the transposed tile
+  j = tr * kRedTile + tx;
+  if (i < n && j < n && (tr != tc || tx > ty)) {
+    s_ii[(long long)i * n + j] = tile[tx][ty];
+  }
 }
 
 template <typename T, int LOSS>
@@ -492,7 +744,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                    const T* __restrict__ out_pt, const T* __restrict__ dx_i,
                    const T* __restrict__ dx_cam, int ni, T a2,
                    T* __restrict__ dx_p) {
-  __shared__ T red_sh[kMaxWarps * 3];
+  __shared__ T red_sh[kMaxWarps][3];
   const long long p = blockIdx.x;
   const int a = threadIdx.x;
   T u[3] = {T(0), T(0), T(0)};
@@ -575,8 +827,9 @@ inline int threads_for(int ni) { return (ni + 31) / 32 * 32; }
 
 template <typename T, int LOSS>
 int launch_assemble(const T* inst, const T* cam, const T* points,
-                    const T* obs_uv, const T* obs_inv_sd, const T* opt_inst,
-                    const T* opt_cam, const T* opt_points, const T* point_prior,
+                    const T* obs_uv, const T* obs_inv_sd,
+                    const unsigned char* opt_inst, const unsigned char* opt_cam,
+                    const unsigned char* opt_points, const T* point_prior,
                     const T* pp_inv, T lam1, int ni, int np, int chunk,
                     int n_chunks, T a2, T* out_pt, T* bmat, T* aux_part,
                     cudaStream_t s) {
@@ -597,12 +850,13 @@ int launch_assemble(const T* inst, const T* cam, const T* points,
 
 template <typename T>
 int schur_assembly(const T* inst, const T* cam, const T* points,
-                   const T* obs_uv, const T* obs_inv_sd, const T* opt_inst,
-                   const T* opt_cam, const T* opt_points, const T* point_prior,
+                   const T* obs_uv, const T* obs_inv_sd,
+                   const unsigned char* opt_inst, const unsigned char* opt_cam,
+                   const unsigned char* opt_points, const T* point_prior,
                    const T* pp_inv, double lam1, int ni, int np, int loss,
                    double loss_threshold, int chunk, int n_chunks, int n_split,
-                   long long k_split, T* out_pt, T* bmat, T* aux_part, T* aux,
-                   T* syrk_part, T* s_ii, void* stream) {
+                   long long k_split, T* out_pt, T* bmat, T* aux_part,
+                   T* aux_mid, T* aux, T* syrk_part, T* s_ii, void* stream) {
   if (ni < 1 || ni > kMaxThreads) return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T a2 = T(loss_threshold) * T(loss_threshold);
@@ -623,16 +877,36 @@ int schur_assembly(const T* inst, const T* cam, const T* points,
 #undef OSFM_ASSEMBLE
   if (err) return err;
   const long long n_aux = (long long)kAuxRows * ni;
-  sum_chunks_kernel<T><<<(unsigned)((n_aux + 255) / 256), 256, 0, s>>>(
-      aux_part, n_chunks, n_aux, aux);
+  const unsigned aux_blocks = (unsigned)((n_aux + 255) / 256);
+  const int n_groups = (n_chunks + kChunkGroup - 1) / kChunkGroup;
+  if (n_groups == 1) {
+    sum_chunks_kernel<T><<<aux_blocks, 256, 0, s>>>(aux_part, n_chunks,
+                                                    n_chunks, n_aux, aux);
+  } else {
+    sum_chunks_kernel<T><<<dim3(aux_blocks, n_groups), 256, 0, s>>>(
+        aux_part, n_chunks, kChunkGroup, n_aux, aux_mid);
+    OSFM_CHECK();
+    sum_chunks_kernel<T><<<aux_blocks, 256, 0, s>>>(aux_mid, n_groups,
+                                                    n_groups, n_aux, aux);
+  }
   OSFM_CHECK();
   const int n = 6 * ni;
   const int tiles = (n + kTile - 1) / kTile;
   const dim3 grid(tiles * (tiles + 1) / 2, n_split);
-  syrk_kernel<T><<<grid, 256, 0, s>>>(bmat, 3LL * np, n, k_split, syrk_part);
+  if constexpr (std::is_same<T, double>::value) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        syrk_dmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kDmmaSmem);
+    if (e != cudaSuccess) return (int)e;
+    syrk_dmma_kernel<<<grid, kDmmaThreads, kDmmaSmem, s>>>(
+        bmat, 3LL * np, n, k_split, syrk_part);
+  } else {
+    syrk_kernel<T><<<grid, 256, 0, s>>>(bmat, 3LL * np, n, k_split, syrk_part);
+  }
   OSFM_CHECK();
-  const long long nn = (long long)n * n;
-  syrk_reduce_kernel<T><<<(unsigned)((nn + 255) / 256), 256, 0, s>>>(
+  const int red_tiles = (n + kRedTile - 1) / kRedTile;
+  syrk_reduce_kernel<T><<<red_tiles * (red_tiles + 1) / 2,
+                          kRedTile * kRedTile, 0, s>>>(
       syrk_part, n, n_split, s_ii);
   OSFM_CHECK();
   return 0;
@@ -698,16 +972,18 @@ extern "C" {
 #define OSFM_DENSE_API(SUFFIX, T)                                              \
   int ba_schur_assembly_##SUFFIX(                                              \
       const T* inst, const T* cam, const T* points, const T* obs_uv,          \
-      const T* obs_inv_sd, const T* opt_inst, const T* opt_cam,               \
-      const T* opt_points, const T* point_prior, const T* pp_inv,             \
+      const T* obs_inv_sd, const unsigned char* opt_inst,                     \
+      const unsigned char* opt_cam, const unsigned char* opt_points,          \
+      const T* point_prior, const T* pp_inv,                                  \
       double lam1, int ni, int np, int loss, double loss_threshold,           \
       int chunk, int n_chunks, int n_split, long long k_split, T* out_pt,     \
-      T* bmat, T* aux_part, T* aux, T* syrk_part, T* s_ii, void* stream) {    \
+      T* bmat, T* aux_part, T* aux_mid, T* aux, T* syrk_part, T* s_ii,        \
+      void* stream) {                                                          \
     return schur_assembly<T>(inst, cam, points, obs_uv, obs_inv_sd, opt_inst, \
                              opt_cam, opt_points, point_prior, pp_inv, lam1,  \
                              ni, np, loss, loss_threshold, chunk, n_chunks,   \
-                             n_split, k_split, out_pt, bmat, aux_part, aux,   \
-                             syrk_part, s_ii, stream);                        \
+                             n_split, k_split, out_pt, bmat, aux_part,        \
+                             aux_mid, aux, syrk_part, s_ii, stream);          \
   }                                                                            \
   int ba_back_substitute_##SUFFIX(                                             \
       const T* inst, const T* cam, const T* points, const T* obs_uv,          \

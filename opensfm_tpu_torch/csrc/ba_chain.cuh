@@ -85,13 +85,15 @@ __device__ __forceinline__ void chain_fwd(const T* v, T& p0, T& p1) {
   p1 = v[8] * d * vv;
 }
 
+// The chain and its Jacobian with the rotation's coefficients R = the
+// Rodrigues<T>(v[0], v[1], v[2], true) of the instance, computed by the
+// caller: a caller that runs one instance over many points computes them once.
 template <typename T>
-__device__ __forceinline__ void chain_fwd_jac(const T* v, T& p0, T& p1,
-                                              T* J0, T* J1) {
+__device__ __forceinline__ void chain_fwd_jac(const T* v, const Rodrigues<T>& R,
+                                              T& p0, T& p1, T* J0, T* J1) {
   const T w0 = v[0], w1 = v[1], w2 = v[2];
   const T k1 = v[6], k2 = v[7], f = v[8];
   const T x0 = v[9], x1 = v[10], x2 = v[11];
-  const Rodrigues<T> R(w0, w1, w2, true);
   const T cos_t = R.cos_t, sinc = R.sinc, ccos = R.ccos;
   const T cxx = w1 * x2 - w2 * x1;
   const T cyy = w2 * x0 - w0 * x2;
@@ -157,6 +159,12 @@ __device__ __forceinline__ void chain_fwd_jac(const T* v, T& p0, T& p1,
     J0[9 + j] = A00 * Rc[j][0] + A01 * Rc[j][1] + A02 * Rc[j][2];
     J1[9 + j] = A10 * Rc[j][0] + A11 * Rc[j][1] + A12 * Rc[j][2];
   }
+}
+
+template <typename T>
+__device__ __forceinline__ void chain_fwd_jac(const T* v, T& p0, T& p1,
+                                              T* J0, T* J1) {
+  chain_fwd_jac(v, Rodrigues<T>(v[0], v[1], v[2], true), p0, p1, J0, J1);
 }
 
 template <typename T>

@@ -19,9 +19,12 @@
 // 6 Jp, cost).  At O = 262,144 that is about 66 MB, about 20 us at 3.35 TB/s;
 // its ~300 flops per observation are far below the f64 rate.  The design
 // therefore gives each observation one thread that gathers its own table rows
-// (no [16, O] pack or transpose pass as the TPU wrapper needs), keeps the
-// whole chain in registers and writes each output once, row-major, straight
-// into the [O, 2, 9] / [O, 2, 3] layouts the reduced-system assembly reads.
+// (no [16, O] pack or transpose pass as the TPU wrapper needs) and keeps the
+// whole chain in registers.  Its 27 outputs go to padded shared-memory rows;
+// the block then writes its contiguous spans of the row-major [O, 2],
+// [O, 2, 9], [O, 2, 3] and [O] outputs (the layouts the reduced-system
+// assembly reads) with 16-byte stores from consecutive threads, so every
+// written sector is whole.
 // fused_cost reads the same 36 B and writes nothing per observation: a
 // grid-stride loop sums into registers, a fixed shared-memory tree reduces
 // each block, and a second single-block pass reduces the block partials.  No
@@ -66,53 +69,124 @@ __device__ __forceinline__ bool gather(const T* inst, const T* cam,
   return true;
 }
 
+constexpr int kResjacBlock = 128;  // observations per block of resjac_kernel
+
+template <typename T>
+struct Vec2;  // one observation's (u, v): a single 16- or 8-byte load
+template <>
+struct Vec2<double> {
+  using type = double2;
+};
+template <>
+struct Vec2<float> {
+  using type = float2;
+};
+
+template <typename T>
+struct Vec16;  // a 16-byte store
+template <>
+struct Vec16<double> {
+  using type = double2;
+};
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+
+// Writes the block's span out[0, nb * W) of one output from its staging rows
+// (stride S >= W, odd, so that the per-thread staging writes are
+// conflict-free): 16-byte stores from consecutive threads, then the span's
+// ragged tail element by element.
+template <typename T, int W, int S>
+__device__ __forceinline__ void store_span(const T* __restrict__ st, int nb,
+                                           T* __restrict__ out) {
+  constexpr int kVec = 16 / sizeof(T);
+  using V = typename Vec16<T>::type;
+  const int len = nb * W;
+  const int n_vec = len / kVec;
+  for (int q = threadIdx.x; q < n_vec; q += kResjacBlock) {
+    V val;
+    T* x = reinterpret_cast<T*>(&val);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const int e = q * kVec + i;
+      x[i] = st[(e / W) * S + e % W];
+    }
+    reinterpret_cast<V*>(out)[q] = val;
+  }
+  for (int e = n_vec * kVec + threadIdx.x; e < len; e += kResjacBlock) {
+    out[e] = st[(e / W) * S + e % W];
+  }
+}
+
+// One thread per observation computes its 27 outputs into shared-memory rows;
+// after one barrier the block writes its contiguous spans of r [O, 2],
+// Jc [O, 2, 9], Jp [O, 2, 3] and cost [O] with coalesced 16-byte stores
+// (writing them straight from each thread touches 32 sectors per warp store,
+// 144 B apart in Jc).  The span starts at o0 * W elements, 16-byte aligned for
+// any W since o0 is a multiple of the block.
 template <typename T, int LOSS>
-__global__ void resjac_kernel(const T* __restrict__ inst,
-                              const T* __restrict__ cam,
-                              const T* __restrict__ points,
-                              const int* __restrict__ obs_inst,
-                              const int* __restrict__ obs_cam,
-                              const int* __restrict__ obs_point,
-                              const T* __restrict__ obs_uv,
-                              const T* __restrict__ obs_inv_sd, Tables tb,
-                              long long n_obs, T a2, T* __restrict__ r,
-                              T* __restrict__ Jc, T* __restrict__ Jp,
-                              T* __restrict__ cost) {
-  const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= n_obs) return;
-  T v[12];
-  T p0, p1, J0[12], J1[12];
-  T isd = obs_inv_sd[o];
-  if (gather(inst, cam, points, obs_inst, obs_cam, obs_point, tb, o, v)) {
-    chain_fwd_jac(v, p0, p1, J0, J1);
-  } else {
-    const T nan = quiet_nan<T>();
-    p0 = p1 = isd = nan;
+__global__ void __launch_bounds__(kResjacBlock)
+    resjac_kernel(const T* __restrict__ inst, const T* __restrict__ cam,
+                  const T* __restrict__ points,
+                  const int* __restrict__ obs_inst,
+                  const int* __restrict__ obs_cam,
+                  const int* __restrict__ obs_point,
+                  const T* __restrict__ obs_uv,
+                  const T* __restrict__ obs_inv_sd, Tables tb, long long n_obs,
+                  T a2, T* __restrict__ r, T* __restrict__ Jc,
+                  T* __restrict__ Jp, T* __restrict__ cost) {
+  constexpr int kSr = 3, kSjc = 19, kSjp = 7;  // odd staging strides
+  __shared__ T st_r[kResjacBlock * kSr];
+  __shared__ T st_jc[kResjacBlock * kSjc];
+  __shared__ T st_jp[kResjacBlock * kSjp];
+  __shared__ T st_c[kResjacBlock];
+  const long long o0 = (long long)blockIdx.x * kResjacBlock;
+  const long long rest = n_obs - o0;
+  const int nb = rest < kResjacBlock ? (int)rest : kResjacBlock;
+  const int a = threadIdx.x;
+  if (a < nb) {
+    const long long o = o0 + a;
+    T v[12];
+    T p0, p1, J0[12], J1[12];
+    T isd = obs_inv_sd[o];
+    if (gather(inst, cam, points, obs_inst, obs_cam, obs_point, tb, o, v)) {
+      chain_fwd_jac(v, p0, p1, J0, J1);
+    } else {
+      const T nan = quiet_nan<T>();
+      p0 = p1 = isd = nan;
 #pragma unroll
-    for (int k = 0; k < 12; ++k) J0[k] = J1[k] = nan;
-  }
-  const T e0 = (p0 - obs_uv[2 * o]) * isd;
-  const T e1 = (p1 - obs_uv[2 * o + 1]) * isd;
-  const T s = e0 * e0 + e1 * e1;
-  T rho, drho;
-  loss_eval<T, LOSS>(s / a2, rho, drho);
-  const T sw = sqrt_weight(drho);
-  const T scale = isd * sw;
-  r[2 * o] = e0 * sw;
-  r[2 * o + 1] = e1 * sw;
-  T* jc = Jc + 18 * o;
-  T* jp = Jp + 6 * o;
+      for (int k = 0; k < 12; ++k) J0[k] = J1[k] = nan;
+    }
+    const auto uv = reinterpret_cast<const typename Vec2<T>::type*>(obs_uv)[o];
+    const T e0 = (p0 - uv.x) * isd;
+    const T e1 = (p1 - uv.y) * isd;
+    const T s = e0 * e0 + e1 * e1;
+    T rho, drho;
+    loss_eval<T, LOSS>(s / a2, rho, drho);
+    const T sw = sqrt_weight(drho);
+    const T scale = isd * sw;
+    st_r[a * kSr] = e0 * sw;
+    st_r[a * kSr + 1] = e1 * sw;
+    T* jc = st_jc + a * kSjc;
+    T* jp = st_jp + a * kSjp;
 #pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    jc[k] = J0[k] * scale;
-    jc[9 + k] = J1[k] * scale;
-  }
+    for (int k = 0; k < 9; ++k) {
+      jc[k] = J0[k] * scale;
+      jc[9 + k] = J1[k] * scale;
+    }
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    jp[k] = J0[9 + k] * scale;
-    jp[3 + k] = J1[9 + k] * scale;
+    for (int k = 0; k < 3; ++k) {
+      jp[k] = J0[9 + k] * scale;
+      jp[3 + k] = J1[9 + k] * scale;
+    }
+    st_c[a] = T(0.5) * a2 * rho;
   }
-  cost[o] = T(0.5) * a2 * rho;
+  __syncthreads();
+  store_span<T, 2, kSr>(st_r, nb, r + 2 * o0);
+  store_span<T, 18, kSjc>(st_jc, nb, Jc + 18 * o0);
+  store_span<T, 6, kSjp>(st_jp, nb, Jp + 6 * o0);
+  store_span<T, 1, 1>(st_c, nb, cost + o0);
 }
 
 template <typename T, int LOSS>
@@ -153,9 +227,8 @@ void launch_resjac(const T* inst, const T* cam, const T* points,
                    const int* obs_point, const T* obs_uv, const T* obs_inv_sd,
                    Tables tb, long long n_obs, T a2, T* r, T* Jc, T* Jp,
                    T* cost, cudaStream_t stream) {
-  const int block = 128;
-  const long long grid = (n_obs + block - 1) / block;
-  resjac_kernel<T, LOSS><<<(unsigned)grid, block, 0, stream>>>(
+  const long long grid = (n_obs + kResjacBlock - 1) / kResjacBlock;
+  resjac_kernel<T, LOSS><<<(unsigned)grid, kResjacBlock, 0, stream>>>(
       inst, cam, points, obs_inst, obs_cam, obs_point, obs_uv, obs_inv_sd, tb,
       n_obs, a2, r, Jc, Jp, cost);
 }

@@ -30,7 +30,8 @@ Each wrapper runs the plain PyTorch version when its tensors lie on the CPU
 and launches the CUDA kernels when they lie on a CUDA device; it never falls
 back from one to the other.  `<wrapper>.launches` counts the wrapper's calls
 that launched its kernels: one call of `fused_schur_assembly` launches four
-CUDA kernels (assembly, chunk sum, product, product sum), one of
+or five CUDA kernels (assembly, a one- or two-level chunk sum, product,
+product sum; the f64 product on the f64 tensor cores), one of
 `fused_cost_dense` two (partials, final sum), one of `fused_back_substitute`
 one.
 """
@@ -56,8 +57,10 @@ PT_COLS = 16  # out_pt columns (kPt)
 AUX_ROWS = 96  # aux rows (kAuxRows)
 MAX_NI = 256  # one thread per instance slot (kMaxThreads)
 SMS = 132  # streaming multiprocessors of an H100 SXM
-SYRK_TILE = 64  # kTile
-SYRK_TILE_K = 16  # kTileK
+SYRK_TILE = 64  # kTile: the product's output tile
+SYRK_TILE_K = 16  # kTileK (f32) = kDmmaK (f64): k rows per stage
+REDUCE_TILE = 16  # kRedTile: the split sum's tile
+CHUNK_GROUP = 32  # kChunkGroup: chunk partials per first-level sum
 
 _UPPER = ([0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2])  # 3x3 upper triangle
 _SYM = [0, 1, 2, 1, 3, 4, 2, 4, 5]  # upper triangle -> row-major 3x3
@@ -137,6 +140,19 @@ def fused_schur_assembly_plain(inst, cam, points, obs_uv, obs_inv_sd,
                                point_prior_inv_sd, lam, loss: str,
                                loss_threshold: float):
     """Plain PyTorch version of `fused_schur_assembly`."""
+    out_pt, bmat, aux = schur_terms_plain(
+        inst, cam, points, obs_uv, obs_inv_sd, opt_inst, opt_cam, opt_points,
+        point_prior, point_prior_inv_sd, lam, loss, loss_threshold)
+    return out_pt, bmat.T @ bmat, aux
+
+
+def schur_terms_plain(inst, cam, points, obs_uv, obs_inv_sd, opt_inst,
+                      opt_cam, opt_points, point_prior, point_prior_inv_sd,
+                      lam, loss: str, loss_threshold: float):
+    """(out_pt, bmat, aux) of the dense assembly, the arguments those of
+    `fused_schur_assembly`: bmat [3 NP, 6 NI] (rows (p, k), columns (x, a))
+    is the Schur factor whose product bmat^T bmat is S_II, as the kernels'
+    first pass writes it."""
     ni, n_p, dt = inst.shape[0], points.shape[0], points.dtype
     r, J = _weighted(inst, cam, points, obs_uv, obs_inv_sd, loss,
                      loss_threshold)
@@ -165,7 +181,6 @@ def fused_schur_assembly_plain(inst, cam, points, obs_uv, obs_inv_sd,
     Ga = torch.einsum("pakx,pakj->paxj", Ji, Jp)
     B = torch.einsum("paxj,pjk->paxk", Ga, L)
     Bm = B.permute(0, 3, 2, 1).reshape(n_p * 3, 6 * ni)  # rows (p, k), cols (x, a)
-    s_ii = Bm.T @ Bm
     Cg = torch.einsum("pyj,pjk->pyk", Vg, L)
     Ug = torch.einsum("pyj,pjk->pyk", Vg, H)
 
@@ -187,7 +202,7 @@ def fused_schur_assembly_plain(inst, cam, points, obs_uv, obs_inv_sd,
         lane0(torch.einsum("pxk,pyk->xy", Ug, Vg)[_UPPER]),
     ])
     out_pt = torch.cat([hi, bp, hib, torch.zeros_like(hi[:, :4])], dim=1)
-    return out_pt, s_ii, aux
+    return out_pt, Bm, aux
 
 
 def fused_back_substitute_plain(inst, cam, points, obs_uv, obs_inv_sd, out_pt,
@@ -232,7 +247,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     for s in ("f32", "f64"):
         fn = getattr(lib, f"ba_schur_assembly_{s}")
         fn.argtypes = ([_P] * 10 + [_D, _I, _I, _I, _D, _I, _I, _I, _LL]
-                       + [_P] * 7)
+                       + [_P] * 8)
         fn.restype = _I
         fn = getattr(lib, f"ba_back_substitute_{s}")
         fn.argtypes = [_P] * 8 + [_I, _I, _I, _D, _P, _P]
@@ -281,16 +296,27 @@ def _check_slots(ni: int) -> None:
 def assembly_plan(ni: int, n_p: int):
     """(chunk, chunks, splits, split depth) of the assembly: points per block
     of the first pass, its blocks, and the K-splits of the S_II product with
-    their depth.  A function of the shapes alone, so the summation order,
-    and the result, are the same on every call."""
+    their depth (a multiple of the product's stage depth).  The product runs
+    one block per lower output tile and split, about four per SM: at
+    64 x 8,192, 21 tiles x 25 splits = 525 blocks over the 132 SMs, one
+    wave.  A function of the shapes alone, so the summation order, and the
+    result, are the same on every call."""
     warps = -(-ni // 32)
     chunk = -(-n_p // max(1, SMS * 8 // warps))
     n_chunks = -(-n_p // chunk)
-    tiles = -(-6 * ni // SYRK_TILE)
     k = 3 * n_p
-    n_split = max(1, min(2 * SMS // (tiles * (tiles + 1) // 2), k // 512))
+    n_split = max(1, min(4 * SMS // len(product_tiles(6 * ni)), k // 512))
     k_split = -(-(-(-k // n_split)) // SYRK_TILE_K) * SYRK_TILE_K
     return chunk, n_chunks, -(-k // k_split), k_split
+
+
+def product_tiles(n: int, tile: int = SYRK_TILE):
+    """[(tile row, tile column)] of the product's blocks in blockIdx.x order,
+    the tiles on and below the diagonal of an n x n output, row by row (the
+    kernels' `lower_tile`; the split sum walks its REDUCE_TILE tiles
+    alike)."""
+    t = -(-n // tile)
+    return [(r, c) for r in range(t) for c in range(r + 1)]
 
 
 def fused_schur_assembly(inst, cam, points, obs_uv, obs_inv_sd, opt_inst,
@@ -322,13 +348,13 @@ def fused_schur_assembly(inst, cam, points, obs_uv, obs_inv_sd, opt_inst,
     aux = torch.empty((AUX_ROWS, ni), **new)
     if n_p == 0:
         return out_pt, s_ii.zero_(), aux.zero_()
-    # 0/1 masks in the working type, as the kernel multiplies by them.
-    opt_i = opt_inst.to(dt).contiguous()
-    opt_c = opt_cam.to(dt).contiguous()
-    opt_p = opt_points.to(dt).contiguous()
+    # The masks as bytes (0 or 1): the solver's bool masks need no copy.
+    opt_i, opt_c, opt_p = (m.to(torch.bool).contiguous().view(torch.uint8)
+                           for m in (opt_inst, opt_cam, opt_points))
     chunk, n_chunks, n_split, k_split = assembly_plan(ni, n_p)
     bmat = torch.empty((3 * n_p, 6 * ni), **new)
     aux_part = torch.empty((n_chunks, AUX_ROWS, ni), **new)
+    aux_mid = torch.empty((-(-n_chunks // CHUNK_GROUP), AUX_ROWS, ni), **new)
     syrk_part = torch.empty((n_split, 6 * ni, 6 * ni), **new)
     fn = getattr(_lib(), f"ba_schur_assembly_{suffix}")
     with torch.cuda.device(obs_uv.device):
@@ -339,8 +365,8 @@ def fused_schur_assembly(inst, cam, points, obs_uv, obs_inv_sd, opt_inst,
                  point_prior_inv_sd.data_ptr(), 1.0 + float(lam), ni, n_p,
                  loss_id, float(loss_threshold), chunk, n_chunks, n_split,
                  k_split, out_pt.data_ptr(), bmat.data_ptr(),
-                 aux_part.data_ptr(), aux.data_ptr(), syrk_part.data_ptr(),
-                 s_ii.data_ptr(), stream)
+                 aux_part.data_ptr(), aux_mid.data_ptr(), aux.data_ptr(),
+                 syrk_part.data_ptr(), s_ii.data_ptr(), stream)
     _raise_on(err, "fused_schur_assembly")
     fused_schur_assembly.launches += 1
     return out_pt, s_ii, aux

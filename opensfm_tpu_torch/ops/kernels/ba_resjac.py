@@ -251,6 +251,9 @@ def _check_cuda(inst, cam, points, obs_inst, obs_cam, obs_point, obs_uv,
             or obs_uv.shape != (n, 2) or obs_inv_sd.shape != (n,)
             or any(t.shape != (n,) for t in ints)):
         raise ValueError("bad shapes for the residual/Jacobian kernels")
+    if obs_uv.data_ptr() % (2 * obs_uv.element_size()):
+        raise ValueError("the kernels read each obs_uv row as one aligned "
+                         "vector: obs_uv must start on a row boundary")
     if loss not in LOSS_IDS:
         raise ValueError(f"unknown loss {loss!r}")
     return ("f32" if dtype == torch.float32 else "f64"), LOSS_IDS[loss]

@@ -173,14 +173,73 @@ def test_s_ii_is_symmetric_and_plain_route_agrees():
     assert _max_rel(b_f, b_u) < 1e-12
 
 
-@pytest.mark.parametrize("ni,n_points", [(8, 128), (64, 8192), (256, 16384),
-                                         (33, 1000), (1, 1)])
+PLAN_SHAPES = [(8, 128), (64, 8192), (256, 16384), (33, 1000), (1, 1),
+               (37, 1000), (256, 1280), (1, 128)]
+
+
+def _kernel_lower_tile(b):
+    """The kernels' `lower_tile` decode of a block index, as written in
+    csrc/ba_assemble.cu."""
+    tr = 0
+    while (tr + 1) * (tr + 2) // 2 <= b:
+        tr += 1
+    return tr, b - tr * (tr + 1) // 2
+
+
+@pytest.mark.parametrize("ni,n_points", PLAN_SHAPES)
 def test_assembly_plan_covers_the_work(ni, n_points):
-    chunk, n_chunks, n_split, k_split = port_k.assembly_plan(ni, n_points)
+    """The first pass's chunks cover the points; the product's blocks cover
+    every lower output tile exactly once (in the kernels' decode order) and
+    its K splits partition 3 NP in order, each a whole number of stages;
+    the plan is a function of the shapes alone."""
+    plan = port_k.assembly_plan(ni, n_points)
+    chunk, n_chunks, n_split, k_split = plan
     assert (n_chunks - 1) * chunk < n_points <= n_chunks * chunk
     k = 3 * n_points
     assert k_split % port_k.SYRK_TILE_K == 0
     assert (n_split - 1) * k_split < k <= n_split * k_split
+    bounds = [(s * k_split, min((s + 1) * k_split, k)) for s in range(n_split)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(b[1] == c[0] for b, c in zip(bounds, bounds[1:]))
+    assert all(k0 < k1 for k0, k1 in bounds)
+
+    n = 6 * ni
+    tiles = port_k.product_tiles(n)
+    assert tiles == [_kernel_lower_tile(b) for b in range(len(tiles))]
+    t = -(-n // port_k.SYRK_TILE)
+    assert sorted(tiles) == [(r, c) for r in range(t) for c in range(t)
+                             if c <= r]
+    assert (t - 1) * port_k.SYRK_TILE < n <= t * port_k.SYRK_TILE
+    assert port_k.assembly_plan(ni, n_points) == plan
+
+
+@pytest.mark.parametrize("n", [6, 222, 384, 1536])
+def test_lower_tiles_and_mirror_cover_every_entry_once(n):
+    """The product's 64 x 64 lower tiles hold every (i, j) with i >= j, and
+    the reduce's 32 x 32 lower tiles (in-tile lower triangle on the
+    diagonal) write every entry of the n x n output exactly once, the ones
+    above the diagonal as mirrors: what makes S_II exactly symmetric."""
+    lower = np.zeros((n, n), dtype=int)
+    for r, c in port_k.product_tiles(n):
+        t = port_k.SYRK_TILE
+        lower[r * t:(r + 1) * t, c * t:(c + 1) * t] += 1
+    assert (lower[np.tril_indices(n)] == 1).all()
+    written = np.zeros((n, n), dtype=int)
+    t = port_k.REDUCE_TILE
+    for r, c in port_k.product_tiles(n, t):
+        for i in range(r * t, min((r + 1) * t, n)):
+            for j in range(c * t, min((c + 1) * t, n)):
+                if r != c or i >= j:
+                    written[i, j] += 1
+                    if i != j:
+                        written[j, i] += 1
+    assert (written == 1).all()
+
+
+def test_product_fills_the_card_at_the_dense_lane():
+    """At 64 x 8,192 the product runs more blocks than the H100 has SMs."""
+    _, _, n_split, _ = port_k.assembly_plan(64, 8192)
+    assert len(port_k.product_tiles(6 * 64)) * n_split >= port_k.SMS
 
 
 def test_fused_route_conditions():

@@ -155,6 +155,20 @@ def test_empty_problem_costs_zero():
     assert r.shape == (0, 2) and Jc.shape == (0, 2, 9) and c.shape == (0,)
 
 
+def test_wrapper_checks_reject_a_misaligned_uv():
+    """The kernel reads each (u, v) row as one aligned vector: the checks
+    take obs_uv on a row boundary and refuse one that starts mid-row."""
+    arrays, _, _ = _inputs("gather")
+    args = _torch(arrays, torch.float64)
+    assert port_k._check_cuda(*args, "SoftLOneLoss") == ("f64", 1)
+    flat = torch.cat([torch.zeros(1, dtype=torch.float64),
+                      args[6].reshape(-1)])
+    shifted = flat[1:].view(-1, 2)
+    assert shifted.is_contiguous()
+    with pytest.raises(ValueError, match="row boundary"):
+        port_k._check_cuda(*args[:6], shifted, args[7], "SoftLOneLoss")
+
+
 def test_cpu_tensors_never_launch():
     arrays, _, _ = _inputs("gather")
     before = (port_k.fused_residual_jacobian.launches,
