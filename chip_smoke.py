@@ -7,15 +7,21 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
  1. build the CUDA kernels of opensfm_tpu_torch/csrc/ with nvcc (sm_90a),
     one nvcc per source, all at once, beside a probe of the f64 mma.sync
     shapes ptxas takes; print ptxas's registers and spills (the tensor-core
-    top-2 kernels, the f64 tensor-core product and the residual/Jacobian
-    kernels must not spill);
+    top-2 kernels, the f64 tensor-core product, the residual/Jacobian
+    kernels, the cost kernel and the back-substitution must not spill;
+    the last two's registers and stack frames are printed);
  2. hold every kernel against its plain PyTorch version on the card, in f32
     and f64, for all five losses: the residual/Jacobian and cost kernels in
     the canonical T=8 layout at O = 262,144, in a ragged gathered layout,
-    and at O = 262,147 (a partial last block), with padded slots; the
-    dense-layout assembly, back-substitution and cost kernels on the
+    at O = 262,147 (a partial last block) and at O = 255 and 1, with
+    padded slots, the cost bit-equal across two calls and also within
+    tolerance when its instance table is walked in tiles of 64 rows, NaN
+    for an index outside its table; the cost on a map of 3,000 shots (its
+    table in tiles) x 65,536 points x tracks of 8 (two batches a thread);
+    the dense-layout assembly, back-substitution and cost kernels on the
     64 x 8,192 dense grid and the ragged grids DENSE_RAGGED, with dead
-    slots, fixed instances and points and point priors;
+    slots, fixed instances and points and point priors, bit-equal across
+    two calls;
  3. the `bundle` command, through the command runner, on a synthetic mono
     perspective map of 256 shots x 32,768 points x tracks of 8 (f64, the
     product default), with the kernels' launch counts read around it;
@@ -26,7 +32,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     32 x 4,096 (dense, fused route), 3 iterations;
  6. kernel timings (CUDA events, median of 25 runs, L2 flushed before
     each) beside their memory/compute bound, the plain version and a
-    PyTorch yardstick where there is one;
+    PyTorch yardstick where there is one (the grid and chunk sweeps of
+    rows 1 and 5 are `python -m opensfm_tpu_torch.tools.sweep_cost_backsub`);
  7. torch.profiler: device time by kernel over one warm LM trial at the
     bundle shape and at the dense shape, and a warm solve's time per trial;
     the dense assembly's four sub-kernels per call (f64 and f32) and the
@@ -38,7 +45,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     uint8 ones wider than 258 (the FP32 kernel, within 1e-4 of
     sq1 + sq2), at ragged sizes and with fewer than 16 rows; and its
     device launches per call at 8,192^2 (a trace of 20 calls, which must
-    read the wrapper's 2);
+    read the wrapper's 2); then the cost's and back-substitution's device
+    launches per call (one trace of 20 calls each, which must read each
+    wrapper's 1);
  9. the `match_features` command, through the command runner, on a
     synthetic dataset of 32 images x 8,192 features (4,096 true, 4,096
     distractors; 496 pairs), with the kernel's launches read around it and
@@ -80,14 +89,16 @@ PEAK_MMA_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 # sheet: 1,979 TOP/s INT8, dense), the card's rate for that type.
 PEAK_INT8_OPS = 1979e12
 # Floating-point operations per observation slot, counted from csrc/
-# (sin/cos/sqrt/div counted as one each): the forward chain and cost; the
-# forward chain with the 24 Jacobian entries; that plus the assembly's
-# weighting, masks, per-point sums, Schur factor and 81 slot sums; and the
-# chain plus the back-substitution's products.
+# (sin/cos/sqrt/div counted as one each, a fused multiply-add as two): the
+# forward chain and cost (with a rotation per observation); the forward
+# chain with the 24 Jacobian entries; that plus the assembly's weighting,
+# masks, per-point sums, Schur factor and 81 slot sums; and the
+# back-substitution's contracted chain (backsub_u, 133 with SoftLOne's
+# weight) and its three slot sums.
 FLOPS_COST_OBS = 75
 FLOPS_RESJAC_OBS = 330
 FLOPS_ASSEMBLE_SLOT = 830
-FLOPS_BACKSUB_SLOT = 400
+FLOPS_BACKSUB_SLOT = 136
 REPO = os.path.dirname(os.path.abspath(__file__))
 _T0 = time.perf_counter()  # phase lines carry the seconds since start
 WORK = os.path.join(REPO, "build", "chip_smoke")
@@ -151,10 +162,14 @@ def kernel_inputs(problem, dtype, device, ragged, seed: int):
     random gathered subset of 100,003 observations (fewer for a small
     problem); or, `ragged` "tail", the canonical layout and 3 more
     observations drawn from it (O = 262,147 at the bundle shape: not a
-    multiple of the residual/Jacobian kernel's 128-observation block)."""
+    multiple of the residual/Jacobian kernel's 128-observation block); or,
+    `ragged` an int n (not a bool), the canonical layout's first n
+    observations."""
     rng = np.random.default_rng(seed)
     O = len(problem.obs_uv)
-    if ragged == "tail":
+    if type(ragged) is int:
+        sel = np.arange(ragged)
+    elif ragged == "tail":
         sel = np.concatenate([np.arange(O), rng.choice(O, 3)])
     elif ragged:
         sel = np.sort(rng.choice(O, size=min(100_003, O // 2 + 1),
@@ -185,16 +200,20 @@ def _rel(a, b) -> float:
     return float((a - b).abs().max()) / scale if scale else float((a - b).abs().max())
 
 
-def check_kernels(problem, dev="cuda"):
-    """Phase 2: every kernel against its plain version on the card."""
+def check_kernels(problem, large, dev="cuda"):
+    """Phase 2: every kernel against its plain version on the card; the cost
+    also on `large`, a map whose instances exceed the cost block's table."""
     from opensfm_tpu_torch.ops.kernels import ba_resjac as K
 
     worst = {"fused_residual_jacobian": {}, "fused_cost": {}}
     dev = torch.device(dev)
     for dtype in (torch.float64, torch.float32):
         tol = TOL[dtype]
-        for ragged in (False, True, "tail"):
+        for ragged in (False, True, "tail", 255, 1):
             args = kernel_inputs(problem, dtype, dev, ragged, seed=7)
+            suffix, _ = K._check_cuda(*args, "TrivialLoss")
+            plan = K.cost_plan(args[6].shape[0])
+            tiled = 0.0
             for loss in LOSSES:
                 out = K.fused_residual_jacobian(*args, loss, 1.0)
                 ref = K.fused_residual_jacobian_plain(*args, loss, 1.0)
@@ -217,7 +236,8 @@ def check_kernels(problem, dev="cuda"):
                         check(torch.allclose(a, b, rtol=rtol, atol=atol),
                               f"{name} f32 beyond rtol {rtol} atol {atol} "
                               f"({loss}, max err {err:.3g})")
-                rel = abs(float(tot) - float(tot_ref)) / abs(float(tot_ref))
+                rel = abs(float(tot) - float(tot_ref)) / max(
+                    abs(float(tot_ref)), 1e-300)
                 check(rel <= tol["total"],
                       f"total cost rel {rel:.3g} ({loss}, {dtype})")
                 key = str(dtype).split(".")[-1]
@@ -226,12 +246,60 @@ def check_kernels(problem, dev="cuda"):
                 # Determinism: the same inputs give the same bits.
                 check(float(K.fused_cost(*args, loss, 1.0)) == float(tot),
                       "fused_cost is deterministic")
-            layout = {False: "canonical", True: "ragged gathered",
-                      "tail": "canonical + 3"}[ragged]
+                # The instance table walked in tiles of 64 rows (the path of
+                # a map larger than one table) sums in another order.
+                tile = K._launch_cost(args, K.LOSS_IDS[loss], 1.0, suffix,
+                                      plan, 64)
+                rel = abs(float(tile) - float(tot_ref)) / max(
+                    abs(float(tot_ref)), 1e-300)
+                check(rel <= tol["total"], f"fused_cost in tiles of 64 "
+                      f"instances, rel {rel:.3g} ({loss}, {dtype})")
+                tiled = max(tiled, rel)
+            layout = ("canonical head" if type(ragged) is int else
+                      {False: "canonical", True: "ragged gathered",
+                       "tail": "canonical + 3"}[ragged])
             check(ragged != "tail" or args[6].shape[0] % 128 != 0,
                   "the tail layout ends in a partial block")
             log(f"  {str(dtype)[6:]} {layout} O={args[6].shape[0]}: "
-                f"5 losses within tolerance")
+                f"5 losses within tolerance; fused_cost bit-equal twice "
+                f"(plan {plan}), in tiles of 64 instances rel <= {tiled:.3g}")
+        # An index outside its table gives NaN (on the card; the plain
+        # version's indexing raises).
+        if dev.type != "cuda":
+            continue
+        args = kernel_inputs(problem, dtype, dev, False, seed=7)
+        for which, bad in ((3, args[0].shape[0]), (4, args[1].shape[0]),
+                           (5, -1)):
+            broken = list(args)
+            broken[which] = args[which].clone()
+            broken[which][args[6].shape[0] // 2] = bad
+            tot = float(K.fused_cost(*broken, "SoftLOneLoss", 1.0))
+            check(np.isnan(tot), f"fused_cost NaN for index {bad} in "
+                  f"argument {which} ({dtype})")
+        log(f"  {str(dtype)[6:]}: an instance, camera or point index outside "
+            f"its table gives a NaN cost")
+    # A map beyond one table: its instances in tiles, two batches a thread.
+    for dtype in (torch.float64, torch.float32):
+        args = kernel_inputs(large, dtype, dev, False, seed=7)
+        n_inst, n_obs = args[0].shape[0], args[6].shape[0]
+        rows = K.cost_table_rows(n_inst, args[6].element_size())
+        plan = K.cost_plan(n_obs)
+        check(rows < n_inst and plan[1] > K.COST_BATCH,
+              f"the large map takes tiles and batches ({rows}, {plan})")
+        for loss in LOSSES:
+            tot = float(K.fused_cost(*args, loss, 1.0))
+            tot_ref = float(K.fused_cost_plain(*args, loss, 1.0))
+            rel = abs(tot - tot_ref) / abs(tot_ref)
+            check(rel <= TOL[dtype]["total"], f"fused_cost on {n_inst} "
+                  f"instances rel {rel:.3g} ({loss}, {dtype})")
+            check(float(K.fused_cost(*args, loss, 1.0)) == tot,
+                  "fused_cost is deterministic")
+            wc = worst["fused_cost"]
+            key = str(dtype)[6:]
+            wc[key] = max(wc.get(key, 0.0), abs(tot - tot_ref))
+        log(f"  {str(dtype)[6:]} {n_inst} instances O={n_obs}: fused_cost "
+            f"in tiles of {rows} instances (plan {plan}), 5 losses within "
+            f"tolerance, bit-equal twice")
     # An empty problem costs 0 and launches nothing.
     empty = kernel_inputs(problem, torch.float64, dev, False, 0)
     empty = empty[:3] + tuple(t[:0] for t in empty[3:])
@@ -319,6 +387,10 @@ def check_dense_kernels(problems, dev="cuda"):
                                                     1.0)
             rel = _rel(dxp, dxp_ref)
             check(rel <= tol["dx"], f"dx_p {key} rel {rel:.3g} ({loss})")
+            check(bool(torch.isfinite(dxp).all()), f"dx_p finite ({loss})")
+            check(torch.equal(dxp, A.fused_back_substitute(
+                *base, want[0], *dx, loss, 1.0)),
+                "fused_back_substitute is deterministic")
             w = worst["fused_back_substitute"]
             w[key] = max(w.get(key, 0.0), float((dxp - dxp_ref).abs().max()))
             tot = float(A.fused_cost_dense(*base, loss, 1.0))
@@ -333,6 +405,52 @@ def check_dense_kernels(problems, dev="cuda"):
         log(f"  {key} dense {base[2].shape[0]} x {base[0].shape[0]}: "
             f"5 losses within tolerance")
     return worst
+
+
+def check_launches_1_5(big, dense64, calls: int = 20):
+    """Rows 1 and 5's device kernels per call at the path's shapes (f64):
+    one torch.profiler trace of `calls` calls of each, its kernels counted
+    by name (and no other device activity); each count must read the
+    wrapper's stated one.  Run after phase 8's traces, which then see the
+    profiler as before, and before phase 10's long trace, after which the
+    profiler may miss events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from opensfm_tpu_torch.ops.kernels import ba_assemble as A
+    from opensfm_tpu_torch.ops.kernels import ba_resjac as K
+
+    args = kernel_inputs(big, torch.float64, torch.device("cuda"), False, 3)
+    base, extras, dx = dense_kernel_inputs(dense64, torch.float64,
+                                           torch.device("cuda"), seed=13)
+    out_pt = A.fused_schur_assembly(*base, *extras, "SoftLOneLoss", 1.0)[0]
+    fns = {"fused_cost": lambda: K.fused_cost(*args, "SoftLOneLoss", 1.0),
+           "fused_back_substitute": lambda: A.fused_back_substitute(
+               *base, out_pt, *dx, "SoftLOneLoss", 1.0)}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in fns.values():
+            for _ in range(calls):
+                fn()
+        torch.cuda.synchronize()
+    _, n_dev, rows = device_time(prof)
+    kernel = {"fused_cost": "cost_kernel", "fused_back_substitute":
+              "backsub_kernel"}
+    per_call = {name: sum(n for _, n, k in rows if f"::{kernel[name]}<" in k)
+                / calls for name in fns}
+    stated = {"fused_cost": K.KERNELS_PER_CALL["fused_cost"],
+              "fused_back_substitute":
+                  A.KERNELS_PER_CALL["fused_back_substitute"]}
+    check(n_dev == sum(per_call.values()) * calls,
+          f"rows 1 and 5's trace holds only their kernels ({n_dev} events)")
+    for name, n in per_call.items():
+        check(n == stated[name], f"{name}: {n} launches per call traced, "
+              f"{stated[name]} stated")
+    log(f"  rows 1 and 5, launches per call ({calls} calls each traced): "
+        f"{per_call}")
+    return per_call
 
 
 def _wrappers():
@@ -1199,8 +1317,11 @@ def time_assembly_variants(args, rows):
     return n_launch
 
 
-def ptxas_spills(ptxas: str):
-    """{kernel: (spill store bytes, spill load bytes)} from nvcc -Xptxas -v."""
+def ptxas_report(ptxas: str):
+    """{kernel: dict(regs, stack, spill_st, spill_ld)} (bytes but regs) from
+    nvcc -Xptxas -v.  A kernel's properties are the first stack-frame line
+    after its entry; later ones before the next entry belong to the
+    functions it calls (the math library's slow paths)."""
     import re
 
     out, name = {}, None
@@ -1208,11 +1329,53 @@ def ptxas_spills(ptxas: str):
         hit = re.search(r"Compiling entry function '([^']+)'", line)
         if hit:
             name = hit.group(1)
-        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                        line)
-        if hit and name is not None:
-            out[name] = (int(hit.group(1)), int(hit.group(2)))
+            out[name] = dict(regs=None, stack=None, spill_st=None,
+                             spill_ld=None)
+            continue
+        if name is None:
+            continue
+        hit = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", line)
+        if hit and out[name]["stack"] is None:
+            out[name].update(stack=int(hit.group(1)),
+                             spill_st=int(hit.group(2)),
+                             spill_ld=int(hit.group(3)))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit:
+            out[name]["regs"] = int(hit.group(1))
     return out
+
+
+def ptxas_spills(ptxas: str):
+    """{kernel: (spill store bytes, spill load bytes)} from nvcc -Xptxas -v."""
+    return {k: (v["spill_st"], v["spill_ld"])
+            for k, v in ptxas_report(ptxas).items()}
+
+
+def redesigned_ptxas(libs_log):
+    """Phase 1: registers, stack frame and spills of rows 1 and 5's kernels
+    (cost_kernel and backsub_kernel: 2 types x 5 losses each), summarised
+    per kernel and type; fails on a spill."""
+    from opensfm_tpu_torch.ops.kernels import ba_assemble as A
+    from opensfm_tpu_torch.ops.kernels import ba_resjac as K
+
+    summary = {}
+    for source, key, count in ((K.SOURCE, "cost_kernel", 10),
+                               (A.SOURCE, "backsub_kernel", 10)):
+        found = {k: v for k, v in ptxas_report(libs_log[source][1]).items()
+                 if f"{len(key)}{key}" in k}
+        check(len(found) == count,
+              f"{count} {key} instantiations in ptxas's report, "
+              f"{len(found)} found")
+        for dt, tag in (("f64", "Id"), ("f32", "If")):
+            rows = [v for k, v in found.items() if f"{key}{tag}" in k]
+            summary[f"{key} {dt}"] = dict(
+                regs=sorted({r["regs"] for r in rows}),
+                stack=sorted({r["stack"] for r in rows}),
+                spill=sorted({(r["spill_st"], r["spill_ld"]) for r in rows}))
+        check(all(v["spill_st"] == 0 and v["spill_ld"] == 0
+                  for v in found.values()), f"{key} does not spill")
+    return summary
 
 
 # f64 mma.sync shapes: (A, B, C/D) registers per thread.  m8n8k4 is sm_80's;
@@ -1312,12 +1475,16 @@ def main() -> int:
     check(len(redesigned) == 11
           and all(v == (0, 0) for v in redesigned.values()),
           "the DMMA product and the resjac kernels do not spill")
+    ptxas_rows_1_5 = redesigned_ptxas(_build.BUILD_LOG)
+    for key, v in ptxas_rows_1_5.items():
+        log(f"  {key}: registers {v['regs']}, stack frame {v['stack']} B, "
+            f"spill (stores, loads) {v['spill']}")
 
     log("phase 2: kernels vs plain on the card")
     t0 = time.perf_counter()
     big = sb.make_problem(256, 32768, track_window=8)
     dense64 = sb.make_problem(64, 8192)
-    worst = check_kernels(big)
+    worst = check_kernels(big, sb.make_problem(3000, 65536, track_window=8))
     worst.update(check_dense_kernels(
         [dense64] + [sb.make_problem(ni, n_p) for ni, n_p in DENSE_RAGGED]))
     log(f"  done in {time.perf_counter() - t0:.1f} s; worst abs err {worst}")
@@ -1351,6 +1518,7 @@ def main() -> int:
     worst["top2_sqdist"], top2_per_call = check_top2()
     log(f"  done in {time.perf_counter() - t0:.1f} s; worst abs err "
         f"{worst['top2_sqdist']}")
+    per_call_1_5 = check_launches_1_5(big, dense64)
 
     log(f"phase 9: match_features command, {MATCH_SHOTS} images x "
         f"{MATCH_FEATURES} features")
@@ -1444,6 +1612,13 @@ def main() -> int:
         if name == "fused_schur_assembly":
             kernels[-1].update(sub_kernel_ms=schur_split,
                                product_step_torch_mm_ms=product_mm_ms)
+        if name in per_call_1_5:
+            ptx = {k.split()[1]: v for k, v in ptxas_rows_1_5.items()
+                   if k.startswith({"fused_cost": "cost_kernel",
+                                    "fused_back_substitute":
+                                        "backsub_kernel"}[name])}
+            kernels[-1].update(launches_per_call=per_call_1_5[name],
+                               ptxas=ptx)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -43,12 +43,19 @@
 // needs the product fused into pass 1 and is later work.
 //
 // fused_back_substitute recomputes the chain instead of keeping the
-// Jacobians: dx_p = Hinv (bp - sum_a Jp^T (J_pose dx_a + J_cam dx_cam)), one
-// block per point, one thread per slot, a block reduction per point.
+// Jacobians: dx_p = Hinv (bp - sum_a Jp^T (J_pose dx_a + J_cam dx_cam)).  It
+// reads ~24 B per slot in f64 and its chain's operations bound it (the
+// operations of forming and contracting the 24 Jacobian entries per slot).
+// So backsub_kernel, like assemble_kernel, runs one block per chunk of points
+// and one thread per slot, with everything that depends on the slot alone
+// (the rotation, its derivative along the update, the camera) computed once
+// per slot, the Jacobian contracted as it forms into fused multiply-adds
+// (about a quarter of the operations), and one barrier per chunk instead of
+// a block reduction per point.
 // fused_cost_dense is the cost over the dense grid with the indices implied
 // by the slot number (no index arrays): a grid-stride loop, a fixed tree per
-// block and a second single-block pass (as ba_resjac.cu's cost).  Both read
-// ~24 B per slot in f64 and are memory- and latency-bound.
+// block and a second single-block pass.  It reads ~24 B per slot in f64 and
+// is memory- and latency-bound.
 //
 // Interface: plain C functions (ctypes), launched on the caller's stream; each
 // returns the first non-zero cudaGetLastError() after its launches (or -1 for
@@ -566,6 +573,41 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+// The back-substitution's copies.  Their asm names memory as clobbered:
+// the compiler sees no store to the staged shared memory otherwise, and
+// may then treat its reads as reads of memory never written (with other
+// register limits this kernel read wrong values without it).  The product's
+// helpers above stay as they are, with the code they compile to.
+//
+// An N-byte (4, 8 or 16) asynchronous copy, both addresses N-byte aligned.
+template <int N>
+__device__ __forceinline__ void cp_async_n(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+               "l"(gmem), "n"(N)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit_m() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_m() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Waits until at most n of this thread's copy groups are pending (n >= 7:
+// at most 7, which completes every group but the last 7).
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n < 7 ? n : 7) {
+    case 0: cp_async_wait_m<0>(); break;
+    case 1: cp_async_wait_m<1>(); break;
+    case 2: cp_async_wait_m<2>(); break;
+    case 3: cp_async_wait_m<3>(); break;
+    case 4: cp_async_wait_m<4>(); break;
+    case 5: cp_async_wait_m<5>(); break;
+    case 6: cp_async_wait_m<6>(); break;
+    default: cp_async_wait_m<7>(); break;
+  }
+}
 
 // d += a (16 x 8, row) * b (8 x 8, col), f64, one warp.  Fragments (g = lane
 // / 4, t = lane % 4): a[i] = A[g + 8 (i % 2)][t + 4 (i / 2)], b[i] =
@@ -736,56 +778,232 @@ __global__ void __launch_bounds__(kRedTile * kRedTile)
   }
 }
 
+// What the back-substitution needs of one instance slot, computed once per
+// slot: the rotation R(w), the directional derivative of R along the pose
+// update's dw, M = dR[dw] (so that dX = M x + dt is the derivative of
+// X = R x + t along (dw, dt), for any point x), the translation and its
+// update, and the camera and its update.  M follows from the Gallego-Yezzi
+// column d(Rx)/dw_i = w_i V + sinc (e_i x x) + ccos (rdx e_i + x_i w) of
+// chain_fwd_jac, V = -sinc x + sp (w x x) + gp rdx w, summed against dw:
+//   M = -(w.dw) sinc I + (w.dw) sp [w]x + (w.dw) gp w w^T + sinc [dw]x
+//       + ccos (dw w^T + w dw^T).
+template <typename T>
+struct BacksubSlot {
+  T R[3][3], M[3][3], t[3], dt[3];
+  T k1, k2, f, dk1, dk2, df;
+  __device__ __forceinline__ void init(const T* __restrict__ pose,
+                                       const T* __restrict__ cam,
+                                       const T* __restrict__ dpose,
+                                       const T* __restrict__ dcam) {
+    const T w[3] = {pose[0], pose[1], pose[2]};
+    const T dw[3] = {dpose[0], dpose[1], dpose[2]};
+    const Rodrigues<T> rod(w[0], w[1], w[2], true);
+    const T wd = w[0] * dw[0] + w[1] * dw[1] + w[2] * dw[2];
+    const T al = -wd * rod.sinc, be = wd * rod.sp, ga = wd * rod.gp;
+    // [a]x[m][n] = sum_k eps(m, k, n) a_k
+    const T W[3][3] = {{T(0), -w[2], w[1]}, {w[2], T(0), -w[0]},
+                       {-w[1], w[0], T(0)}};
+    const T DW[3][3] = {{T(0), -dw[2], dw[1]}, {dw[2], T(0), -dw[0]},
+                        {-dw[1], dw[0], T(0)}};
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+#pragma unroll
+      for (int n = 0; n < 3; ++n) {
+        const T id = m == n ? T(1) : T(0);
+        R[m][n] = rod.cos_t * id + rod.sinc * W[m][n] + rod.ccos * w[m] * w[n];
+        M[m][n] = al * id + be * W[m][n] + ga * w[m] * w[n] +
+                  rod.sinc * DW[m][n] + rod.ccos * (dw[m] * w[n] + w[m] * dw[n]);
+      }
+      t[m] = pose[3 + m];
+      dt[m] = dpose[3 + m];
+    }
+    k1 = cam[0];
+    k2 = cam[1];
+    f = cam[2];
+    dk1 = dcam[0];
+    dk2 = dcam[1];
+    df = dcam[2];
+  }
+};
+
+// 1 / x for x finite and nonzero.  f64: the hardware's approximation and
+// two Newton steps, within an ulp of the IEEE divide, as a straight line:
+// the divide branches to a slow-path call, and across that call ptxas
+// spilled the trivial loss's point loop.  f32: the IEEE divide.
+__device__ __forceinline__ double recip(double x) {
+  double y;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(x));
+  y = fma(y, fma(-x, y, 1.0), y);
+  return fma(y, fma(-x, y, 1.0), y);
+}
+__device__ __forceinline__ float recip(float x) { return 1.0f / x; }
+
+// max(rho'(q), 1e-12) of the robust losses (loss_eval's drho, clamped as
+// sqrt_weight clamps it), with SoftLOne's 1 / sqrt(1 + q) and Huber's
+// 1 / sqrt(q) as one rsqrt instead of a square root and a divide.  NaN
+// stays NaN.
+template <typename T, int LOSS>
+__device__ __forceinline__ T loss_weight(T q) {
+  const T one = T(1);
+  T w;
+  if (LOSS == 0) {
+    w = one;
+  } else if (LOSS == 1) {
+    w = rsqrt(one + q);
+  } else if (LOSS == 2) {
+    w = one / (one + q);
+  } else if (LOSS == 3) {
+    w = (q <= one) ? one : rsqrt(q);
+  } else {
+    const T m = one - q;
+    w = (q <= one) ? m * m : T(0);
+  }
+  const T wmin = T(1e-12);
+  return w < wmin ? wmin : w;
+}
+
+// u = Jp^T (J_pose dx_a + J_cam dx_cam) of one slot and point, every row
+// weighted by s = inv_sd sqrt(rho'), contracted as it forms: with A the 2x3
+// projection Jacobian, J_pose dx_a + J_cam dx_cam = A dX + (u, v) c for the
+// camera's c = f r2 (dk1 + dk2 r2) + df d, and Jp = A R, so
+// u = s^2 R^T A^T (A dX + (u, v) c), and s^2 = inv_sd^2 max(rho', 1e-12)
+// needs no square root.  The f64 pipes bound this kernel, so its sums of
+// products are explicit fused multiply-adds (the build's -fmad=false keeps
+// every other kernel's rounding): with the contraction, about 100
+// operations a slot and point against ~400 for forming the 24 Jacobian
+// entries and contracting them (chain_fwd_jac), and one reciprocal and one
+// reciprocal square root where that chain and its loss weight take five
+// divides and square roots.  The same function up to rounding.
+template <typename T, int LOSS>
+__device__ __forceinline__ void backsub_u(const BacksubSlot<T>& S, T x0, T x1,
+                                          T x2, T uv0, T uv1, T isd,
+                                          T inv_a2, T* ug) {
+  T X[3], dX[3];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    X[m] = fma(S.R[m][2], x2, fma(S.R[m][1], x1, fma(S.R[m][0], x0, S.t[m])));
+    dX[m] =
+        fma(S.M[m][2], x2, fma(S.M[m][1], x1, fma(S.M[m][0], x0, S.dt[m])));
+  }
+  const T iz = recip(X[2]);
+  const T u = X[0] * iz, vv = X[1] * iz;
+  const T r2 = fma(u, u, vv * vv);
+  const T d = fma(r2, fma(S.k2, r2, S.k1), T(1));
+  const T fd = S.f * d;
+  const T e0 = fma(fd, u, -uv0) * isd;
+  const T e1 = fma(fd, vv, -uv1) * isd;
+  const T s2 =
+      isd * isd * loss_weight<T, LOSS>(fma(e0, e0, e1 * e1) * inv_a2);
+  const T fdd = T(2) * S.f * fma(T(2) * S.k2, r2, S.k1);
+  const T fdu = fdd * u, fdv = fdd * vv;
+  const T P00 = fma(fdu, u, fd);
+  const T P01 = fdu * vv;
+  const T P11 = fma(fdv, vv, fd);
+  const T A[2][3] = {{P00 * iz, P01 * iz, -fma(P00, u, P01 * vv) * iz},
+                     {P01 * iz, P11 * iz, -fma(P01, u, P11 * vv) * iz}};
+  const T c = fma(S.f * r2, fma(S.dk2, r2, S.dk1), S.df * d);
+  const T t0 = fma(A[0][0], dX[0], fma(A[0][1], dX[1], fma(A[0][2], dX[2],
+                                                           u * c)));
+  const T t1 = fma(A[1][0], dX[0], fma(A[1][1], dX[1], fma(A[1][2], dX[2],
+                                                           vv * c)));
+  T g[3];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) g[m] = fma(A[0][m], t0, A[1][m] * t1);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    ug[j] = s2 * fma(S.R[0][j], g[0], fma(S.R[1][j], g[1], S.R[2][j] * g[2]));
+  }
+}
+
+constexpr int kPtStage = 12;  // staged per point: x (3), Hinv (6), bp (3)
+
+// fused_back_substitute: one block per chunk of points (backsub_plan), one
+// thread per instance slot.  Each block first starts asynchronous copies
+// (cp.async) of everything the chunk reads into shared memory, one copy
+// group per point: each slot's (uv, inv_sd) of the point, and the point's
+// x, Hinv and bp.  All are in flight at once, and every thread builds its
+// slot's BacksubSlot meanwhile.  Then each thread walks the chunk, waiting
+// only for the point's group (and a barrier, for the point row other
+// threads copied), so the chains of the first points run while the later
+// points are still arriving.  Each point's three u values go to shared
+// memory [chunk][3][nt].  After the last point a warp per point adds the
+// slots' values in slot order (lane sums, then a shuffle tree) and lanes 0-2
+// apply the point's Hinv to bp - u.  No atomics: the same bits on every run.
+// Shared memory: chunk (6 nt + kPtStage) values.
 template <typename T, int LOSS>
 __global__ void __launch_bounds__(kMaxThreads)
     backsub_kernel(const T* __restrict__ inst, const T* __restrict__ cam,
                    const T* __restrict__ points, const T* __restrict__ obs_uv,
                    const T* __restrict__ obs_inv_sd,
                    const T* __restrict__ out_pt, const T* __restrict__ dx_i,
-                   const T* __restrict__ dx_cam, int ni, T a2,
-                   T* __restrict__ dx_p) {
-  __shared__ T red_sh[kMaxWarps][3];
-  const long long p = blockIdx.x;
+                   const T* __restrict__ dx_cam, int ni, int np, int chunk,
+                   T inv_a2, T* __restrict__ dx_p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  using V2 = typename Vec2<T>::type;
+  const int nt = blockDim.x;
   const int a = threadIdx.x;
-  T u[3] = {T(0), T(0), T(0)};
-  if (a < ni) {
-    T v[12], J0[12], J1[12], q0, q1;
-    dense_vals(inst, cam, points, a, p, v);
-    chain_fwd_jac(v, q0, q1, J0, J1);
-    const long long o = p * ni + a;
-    const T isd = obs_inv_sd[o];
-    const T e0 = (q0 - obs_uv[2 * o]) * isd;
-    const T e1 = (q1 - obs_uv[2 * o + 1]) * isd;
-    T rho, drho;
-    loss_eval<T, LOSS>((e0 * e0 + e1 * e1) / a2, rho, drho);
-    const T scale = isd * sqrt_weight(drho);
-    // tmp = J_obs dx over the pose and camera directions.
-    T d[9];
-#pragma unroll
-    for (int x = 0; x < 6; ++x) d[x] = dx_i[6 * a + x];
-#pragma unroll
-    for (int y = 0; y < 3; ++y) d[6 + y] = dx_cam[y];
-    T tmp0 = T(0), tmp1 = T(0);
-#pragma unroll
-    for (int x = 0; x < 9; ++x) {
-      tmp0 = tmp0 + J0[x] * scale * d[x];
-      tmp1 = tmp1 + J1[x] * scale * d[x];
+  V2* uv_s = reinterpret_cast<V2*>(smem_raw);   // [chunk][nt]
+  T* isd_s = reinterpret_cast<T*>(uv_s + chunk * nt);  // [chunk][nt]
+  T* us = isd_s + chunk * nt;                   // [chunk][3][nt]
+  T* pt_s = us + 3 * chunk * nt;                // [chunk][kPtStage]
+  const long long p0 = (long long)blockIdx.x * chunk;
+  const int n_here = (int)(np - p0 < chunk ? np - p0 : chunk);
+  for (int c = 0; c < n_here; ++c) {
+    const long long p = p0 + c;
+    if (a < ni) {
+      const long long o = p * ni + a;
+      cp_async_n<sizeof(V2)>(uv_s + c * nt + a, obs_uv + 2 * o);
+      cp_async_n<sizeof(T)>(isd_s + c * nt + a, obs_inv_sd + o);
     }
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      u[j] = J0[9 + j] * scale * tmp0 + J1[9 + j] * scale * tmp1;
+    if (a < kPtStage) {  // kPtStage <= 32 <= nt
+      cp_async_n<sizeof(T)>(pt_s + kPtStage * c + a,
+                            a < 3 ? points + 3 * p + a
+                                  : out_pt + p * kPt + a - 3);
     }
+    cp_async_commit_m();
   }
-  block_allreduce<T, 3>(u, red_sh);
-  if (threadIdx.x == 0) {
-    const T* pt = out_pt + p * kPt;
-    const T H[3][3] = {{pt[0], pt[1], pt[2]},
-                       {pt[1], pt[3], pt[4]},
-                       {pt[2], pt[4], pt[5]}};
-    const T d0 = pt[6] - u[0], d1 = pt[7] - u[1], d2 = pt[8] - u[2];
+  // Every thread builds a slot (threads past NI that of slot NI - 1, unused).
+  BacksubSlot<T> S;
+  const int sa = a < ni ? a : ni - 1;
+  S.init(inst + 6 * sa, cam, dx_i + 6 * sa, dx_cam);
+  for (int c = 0; c < n_here; ++c) {
+    cp_async_wait_upto(n_here - 1 - c);  // groups 0..c have landed
+    __syncthreads();
+    T ug[3] = {T(0), T(0), T(0)};
+    if (a < ni) {
+      const T* x = pt_s + kPtStage * c;
+      const V2 uv = uv_s[c * nt + a];
+      backsub_u<T, LOSS>(S, x[0], x[1], x[2], uv.x, uv.y, isd_s[c * nt + a],
+                         inv_a2, ug);
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) us[(3 * c + j) * nt + a] = ug[j];
+  }
+  __syncthreads();
+  const int lane = a & 31, n_warps = nt >> 5;
+  for (int c = a >> 5; c < n_here; c += n_warps) {
+    T sum[3];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      dx_p[3 * p + j] = H[j][0] * d0 + H[j][1] * d1 + H[j][2] * d2;
+      const T* row = us + (3 * c + j) * nt;
+      T acc = row[lane];
+      for (int b = lane + 32; b < nt; b += 32) acc += row[b];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        acc += __shfl_down_sync(0xffffffffu, acc, off);
+      }
+      sum[j] = __shfl_sync(0xffffffffu, acc, 0);
+    }
+    if (lane < 3) {
+      const T* pt = pt_s + kPtStage * c + 3;  // out_pt's columns 0-8
+      const int j = lane;
+      // Row j of the symmetric Hinv from its upper triangle (xx xy xz yy yz
+      // zz at columns 0-5).
+      const T h0 = pt[j == 0 ? 0 : j == 1 ? 1 : 2];
+      const T h1 = pt[j == 0 ? 1 : j == 1 ? 3 : 4];
+      const T h2 = pt[j == 0 ? 2 : j == 1 ? 4 : 5];
+      const T d0 = pt[6] - sum[0], d1 = pt[7] - sum[1], d2 = pt[8] - sum[2];
+      dx_p[3 * (p0 + c) + j] = h0 * d0 + h1 * d1 + h2 * d2;
     }
   }
 }
@@ -915,16 +1133,19 @@ int schur_assembly(const T* inst, const T* cam, const T* points,
 template <typename T>
 int back_substitute(const T* inst, const T* cam, const T* points,
                     const T* obs_uv, const T* obs_inv_sd, const T* out_pt,
-                    const T* dx_i, const T* dx_cam, int ni, int np, int loss,
-                    double loss_threshold, T* dx_p, void* stream) {
+                    const T* dx_i, const T* dx_cam, int ni, int np, int chunk,
+                    int n_chunks, int loss, double loss_threshold, T* dx_p,
+                    void* stream) {
   if (ni < 1 || ni > kMaxThreads) return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T a2 = T(loss_threshold) * T(loss_threshold);
+  const T inv_a2 = T(1.0 / (loss_threshold * loss_threshold));
   const int nt = threads_for(ni);
+  const size_t smem = sizeof(T) * (size_t)chunk * (6 * nt + kPtStage);
+  if (smem > 48 * 1024) return -3;  // backsub_plan keeps it within 48 KB
 #define OSFM_BACKSUB(L)                                                    \
-  backsub_kernel<T, L><<<np, nt, 0, s>>>(inst, cam, points, obs_uv,       \
-                                         obs_inv_sd, out_pt, dx_i, dx_cam, \
-                                         ni, a2, dx_p)
+  backsub_kernel<T, L><<<n_chunks, nt, smem, s>>>(                          \
+      inst, cam, points, obs_uv, obs_inv_sd, out_pt, dx_i, dx_cam, ni, np,  \
+      chunk, inv_a2, dx_p)
   switch (loss) {
     case 0: OSFM_BACKSUB(0); break;
     case 1: OSFM_BACKSUB(1); break;
@@ -988,11 +1209,11 @@ extern "C" {
   int ba_back_substitute_##SUFFIX(                                             \
       const T* inst, const T* cam, const T* points, const T* obs_uv,          \
       const T* obs_inv_sd, const T* out_pt, const T* dx_i, const T* dx_cam,   \
-      int ni, int np, int loss, double loss_threshold, T* dx_p,               \
-      void* stream) {                                                          \
+      int ni, int np, int chunk, int n_chunks, int loss,                      \
+      double loss_threshold, T* dx_p, void* stream) {                          \
     return back_substitute<T>(inst, cam, points, obs_uv, obs_inv_sd, out_pt,  \
-                              dx_i, dx_cam, ni, np, loss, loss_threshold,     \
-                              dx_p, stream);                                   \
+                              dx_i, dx_cam, ni, np, chunk, n_chunks, loss,    \
+                              loss_threshold, dx_p, stream);                   \
   }                                                                            \
   int ba_cost_dense_##SUFFIX(const T* inst, const T* cam, const T* points,    \
                              const T* obs_uv, const T* obs_inv_sd, int ni,    \

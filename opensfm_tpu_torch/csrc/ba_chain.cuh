@@ -1,7 +1,9 @@
 // Device code shared by the bundle-adjustment kernels (ba_resjac.cu,
 // ba_assemble.cu): the robust losses, the Rodrigues coefficients, the
-// per-observation projection chain and its closed-form Jacobian, and the
-// deterministic block sum of the cost kernels.
+// per-observation projection chain and its closed-form Jacobian, the
+// deterministic block sums of the cost kernels, and the one-pass cost's
+// helpers (the chain from given rotation coefficients, the block's rotation
+// table, a shuffle block sum and the last-block grid sum).
 //
 // Per observation the chain is
 //   X  = R(w_i) x_p + t_i                      (Rodrigues, small-angle series)
@@ -185,6 +187,17 @@ __device__ __forceinline__ T sqrt_weight(T drho) {
   return sqrt(drho < wmin ? wmin : drho);
 }
 
+template <typename T>
+struct Vec2;  // one observation's (u, v): a single 16- or 8-byte load
+template <>
+struct Vec2<double> {
+  using type = double2;
+};
+template <>
+struct Vec2<float> {
+  using type = float2;
+};
+
 constexpr int kCostBlock = 256;
 
 // Sum over the kCostBlock threads of a block by a fixed shared-memory tree:
@@ -211,6 +224,110 @@ __global__ void __launch_bounds__(kCostBlock)
   for (int i = threadIdx.x; i < n_partials; i += kCostBlock) acc += partials[i];
   const T total = block_sum(acc);
   if (threadIdx.x == 0) out[0] = total;
+}
+
+// ---------------------------------------------------------------------------
+// One-pass cost helpers (fused_cost; written so that fused_cost_dense can
+// take them over).
+// ---------------------------------------------------------------------------
+
+// A cost block's instance table in shared memory: a row is (w0, w1, w2,
+// t0, t1, t2, cos t, sinc, ccos), kInstCols values.  A block holds at most
+// kInstTableBytes of rows (1,365 instances in f64, 2,730 in f32), so that
+// two blocks stay resident on an SM at any n_inst; a larger map is walked in
+// tiles of that many rows.
+constexpr int kInstCols = 9;
+constexpr int kInstTableBytes = 96 * 1024;
+
+// The chain_fwd chain with the rotation's coefficients (cos t, sinc, ccos) of
+// Rodrigues<T>(v[0], v[1], v[2], false) given: the same operations in the
+// same order, so the same bits as chain_fwd.
+template <typename T>
+__device__ __forceinline__ void chain_fwd(const T* v, T cos_t, T sinc,
+                                          T ccos, T& p0, T& p1) {
+  const T w0 = v[0], w1 = v[1], w2 = v[2];
+  const T x0 = v[9], x1 = v[10], x2 = v[11];
+  const T cxx = w1 * x2 - w2 * x1;
+  const T cyy = w2 * x0 - w0 * x2;
+  const T czz = w0 * x1 - w1 * x0;
+  const T rdx = w0 * x0 + w1 * x1 + w2 * x2;
+  const T X0 = x0 * cos_t + cxx * sinc + w0 * rdx * ccos + v[3];
+  const T X1 = x1 * cos_t + cyy * sinc + w1 * rdx * ccos + v[4];
+  const T X2 = x2 * cos_t + czz * sinc + w2 * rdx * ccos + v[5];
+  const T iz = T(1) / X2;
+  const T u = X0 * iz, vv = X1 * iz;
+  const T r2 = u * u + vv * vv;
+  const T d = T(1) + r2 * (v[6] + v[7] * r2);
+  p0 = v[8] * d * u;
+  p1 = v[8] * d * vv;
+}
+
+// tab[kInstCols i + k] = instance lo + i's pose (k < 6) and the (cos t,
+// sinc, ccos) of Rodrigues<T>(w, false) (k = 6, 7, 8), for i < rows, one
+// Rodrigues per thread; the caller synchronises before reading.
+template <typename T>
+__device__ __forceinline__ void fill_inst_table(const T* __restrict__ inst,
+                                                int lo, int rows, T* tab) {
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+    T* row = tab + kInstCols * i;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) row[k] = inst[6LL * (lo + i) + k];
+    const Rodrigues<T> R(row[0], row[1], row[2], false);
+    row[6] = R.cos_t;
+    row[7] = R.sinc;
+    row[8] = R.ccos;
+  }
+}
+
+// Sum over a block of blockDim.x (a multiple of 32, <= 1024) threads: a
+// shuffle tree in each warp, then thread 0 adds the warp sums in warp order.
+// A fixed order, so the same bits on every run; one barrier.  The total is
+// valid in thread 0 only.
+template <typename T>
+__device__ __forceinline__ T block_sum_warps(T acc, T* sh /* [32] */) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  T total = T(0);
+  if (threadIdx.x == 0) {
+    total = sh[0];
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) total += sh[w];
+  }
+  return total;
+}
+
+// The end of a one-pass grid sum.  Each block stores its total to
+// partials[blockIdx.x] and takes a ticket; the block that takes the last one
+// adds all partials in block order (a fixed tree, so the bits depend on the
+// grid alone, not on which block finishes last), writes out[0], and sets the
+// ticket counter back to 0 for the next launch.  The counter is one per
+// device, zero between launches: two launches that use it must not run at
+// once (calls on two concurrent streams would mix their tickets).
+template <typename T>
+__device__ __forceinline__ void grid_sum_last_block(T block_total,
+                                                    T* partials,
+                                                    unsigned* ticket,
+                                                    T* out) {
+  __shared__ bool last;
+  __shared__ T sh[32];
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = block_total;
+    __threadfence();  // the partial is visible before the ticket is taken
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  T acc = T(0);
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x) {
+    acc += __ldcg(partials + i);  // from L2: written by other blocks
+  }
+  const T total = block_sum_warps(acc, sh);
+  if (threadIdx.x == 0) {
+    out[0] = total;
+    *ticket = 0u;
+  }
 }
 
 }  // namespace

@@ -18,7 +18,9 @@ identity rig):
   in lane 0).
 - `fused_back_substitute` (Pallas `_make_backsub_kernel`): the point updates
   dx_p = Hinv (bp - sum_a Jp^T (J_pose dx_a + J_cam dx_cam)), recomputing the
-  Jacobian chain instead of keeping it.
+  Jacobian chain instead of keeping it: one block per chunk of points
+  (`backsub_plan`), one thread per slot with its rotation and update
+  computed once, the Jacobian contracted as it forms.
 - `fused_cost_dense` (Pallas `_make_cost_kernel_dense`): the total robust
   cost over the grid, the slot number giving the indices.
 
@@ -33,7 +35,7 @@ that launched its kernels: one call of `fused_schur_assembly` launches four
 or five CUDA kernels (assembly, a one- or two-level chunk sum, product,
 product sum; the f64 product on the f64 tensor cores), one of
 `fused_cost_dense` two (partials, final sum), one of `fused_back_substitute`
-one.
+one (`KERNELS_PER_CALL`).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import torch
 from opensfm_tpu_torch.ops.kernels import _build
 from opensfm_tpu_torch.ops.kernels.ba_resjac import (
     LOSS_IDS,
+    SMS,
     _loss,
     _raise_on,
     chain_fwd,
@@ -56,7 +59,10 @@ SOURCE = "ba_assemble.cu"
 PT_COLS = 16  # out_pt columns (kPt)
 AUX_ROWS = 96  # aux rows (kAuxRows)
 MAX_NI = 256  # one thread per instance slot (kMaxThreads)
-SMS = 132  # streaming multiprocessors of an H100 SXM
+KERNELS_PER_CALL = {"fused_back_substitute": 1}
+BACKSUB_WARPS_PER_SM = 32  # the back-substitution plan's warps per SM
+BACKSUB_SMEM = 48 * 1024  # its cap on a block's shared memory
+BACKSUB_PT_STAGE = 12  # kPtStage: values staged per point (x, Hinv, bp)
 SYRK_TILE = 64  # kTile: the product's output tile
 SYRK_TILE_K = 16  # kTileK (f32) = kDmmaK (f64): k rows per stage
 REDUCE_TILE = 16  # kRedTile: the split sum's tile
@@ -250,7 +256,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                        + [_P] * 8)
         fn.restype = _I
         fn = getattr(lib, f"ba_back_substitute_{s}")
-        fn.argtypes = [_P] * 8 + [_I, _I, _I, _D, _P, _P]
+        fn.argtypes = [_P] * 8 + [_I, _I, _I, _I, _I, _D, _P, _P]
         fn.restype = _I
         fn = getattr(lib, f"ba_cost_dense_{s}")
         fn.argtypes = [_P] * 5 + [_I, _LL, _I, _D, _I, _P, _P, _P]
@@ -308,6 +314,27 @@ def assembly_plan(ni: int, n_p: int):
     n_split = max(1, min(4 * SMS // len(product_tiles(6 * ni)), k // 512))
     k_split = -(-(-(-k // n_split)) // SYRK_TILE_K) * SYRK_TILE_K
     return chunk, n_chunks, -(-k // k_split), k_split
+
+
+def backsub_smem(ni: int, chunk: int, itemsize: int = 8) -> int:
+    """Shared memory of a back-substitution block: per point of the chunk
+    each slot thread's (uv, inv_sd) and three u values, and the point's
+    staged x, Hinv and bp."""
+    threads = -(-ni // 32) * 32
+    return itemsize * chunk * (6 * threads + BACKSUB_PT_STAGE)
+
+
+def backsub_plan(ni: int, n_p: int):
+    """(chunk, chunks) of the back-substitution: points per block and
+    blocks, block b taking points [b * chunk, min((b + 1) * chunk, NP)).
+    About BACKSUB_WARPS_PER_SM warps of slot threads on each SM, and the
+    block's shared memory (f64) within BACKSUB_SMEM.  A function of the
+    shapes alone."""
+    threads = -(-ni // 32) * 32
+    cap = max(1, BACKSUB_SMEM // backsub_smem(ni, 1))
+    blocks = max(1, SMS * BACKSUB_WARPS_PER_SM // (threads // 32))
+    chunk = max(1, min(cap, -(-n_p // blocks)))
+    return chunk, -(-n_p // chunk)
 
 
 def product_tiles(n: int, tile: int = SYRK_TILE):
@@ -393,16 +420,31 @@ def fused_back_substitute(inst, cam, points, obs_uv, obs_inv_sd, out_pt, dx_i,
     if out_pt.shape != (n_p, PT_COLS) or dx_i.shape != (ni, 6) \
             or dx_cam.dim() != 2 or dx_cam.shape[1] < 3:
         raise ValueError("bad shapes for fused_back_substitute")
+    if obs_uv.data_ptr() % (2 * obs_uv.element_size()):
+        raise ValueError("the kernel reads each obs_uv row as one aligned "
+                         "vector: obs_uv must start on a row boundary")
     dx_p = torch.empty((n_p, 3), dtype=obs_uv.dtype, device=obs_uv.device)
     if n_p == 0:
         return dx_p
+    chunk, n_chunks = backsub_plan(ni, n_p)
+    _launch_back_substitute(
+        (inst, cam, points, obs_uv, obs_inv_sd, out_pt, dx_i, dx_cam),
+        suffix, loss_id, loss_threshold, chunk, n_chunks, dx_p)
+    return dx_p
+
+
+def _launch_back_substitute(args, suffix, loss_id, loss_threshold, chunk,
+                            n_chunks, dx_p):
+    """Launches the back-substitution on the checked `args` with the plan
+    (chunk, n_chunks) into dx_p and counts the launch in
+    `fused_back_substitute.launches`.  `fused_back_substitute` passes
+    backsub_plan's; other chunks serve the card's sweeps."""
+    ni, n_p = args[0].shape[0], args[2].shape[0]
     fn = getattr(_lib(), f"ba_back_substitute_{suffix}")
-    with torch.cuda.device(obs_uv.device):
+    with torch.cuda.device(dx_p.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(inst.data_ptr(), cam.data_ptr(), points.data_ptr(),
-                 obs_uv.data_ptr(), obs_inv_sd.data_ptr(), out_pt.data_ptr(),
-                 dx_i.data_ptr(), dx_cam.data_ptr(), ni, n_p, loss_id,
-                 float(loss_threshold), dx_p.data_ptr(), stream)
+        err = fn(*(t.data_ptr() for t in args), ni, n_p, chunk, n_chunks,
+                 loss_id, float(loss_threshold), dx_p.data_ptr(), stream)
     _raise_on(err, "fused_back_substitute")
     fused_back_substitute.launches += 1
     return dx_p

@@ -10,18 +10,24 @@ for the mono perspective configuration (identity rig, camera [k1, k2, f]):
 - `fused_cost` (Pallas `_make_cost_kernel`, math `_chain`): the total robust
   cost only, for the LM accept/reject trial.
 
-Both are memory-bound on the card (36 B read per f64 observation; the
-residual/Jacobian kernel writes 216 B more).  The CUDA source
-(`csrc/ba_resjac.cu`) runs one thread per observation that gathers its own
-table rows through the index arrays, so any layout (gathered, canonical
-(point, slot), dense instance-slot) is served by the same kernel, and sums
-the cost with a deterministic two-pass reduction (no atomics).
+Both read 36 B per f64 observation (the residual/Jacobian kernel writes
+216 B more).  The CUDA source (`csrc/ba_resjac.cu`) gathers each
+observation's table rows through the index arrays, so any layout (gathered,
+canonical (point, slot), dense instance-slot) is served by the same kernels.
+The residual/Jacobian kernel runs one thread per observation.  The cost
+kernel runs `cost_plan(O)`'s grid, several observations a thread, with the
+instances' rotation coefficients computed once per block into a table in
+shared memory (`cost_table_rows`; a larger map in tiles), and sums in one
+pass: the last block to finish adds the
+block sums in block order, elected by a per-device ticket counter
+(`_ticket`), so the sum is deterministic.
 
 Each wrapper runs the plain PyTorch version when its tensors lie on the CPU
 and launches the CUDA kernel when they lie on a CUDA device; it never falls
 back from one to the other.  `<wrapper>.launches` counts the wrapper's calls
-that launched its kernels: one call of `fused_residual_jacobian` launches one
-CUDA kernel, one of `fused_cost` two (block partials, final sum).
+that launched its kernels: one call of either launches one CUDA kernel
+(`KERNELS_PER_CALL`).  Two `fused_cost` calls on one device must not run at
+once on two streams: they share the device's ticket counter.
 """
 
 from __future__ import annotations
@@ -38,8 +44,14 @@ LOSS_IDS = {
     "TrivialLoss": 0, "SoftLOneLoss": 1, "CauchyLoss": 2, "HuberLoss": 3,
     "TukeyLoss": 4,
 }
-COST_BLOCK = 256  # threads per block of the cost kernel (kCostBlock)
-COST_MAX_BLOCKS = 1056  # 8 blocks on each of the H100's 132 SMs
+COST_BLOCK = 256  # threads per block of the cost kernels (kCostBlock)
+COST_MAX_BLOCKS = 1056  # fused_cost_dense: 8 blocks on each of 132 SMs
+SMS = 132  # streaming multiprocessors of an H100 SXM
+COST_BLOCKS_PER_SM = 2  # fused_cost: resident blocks per SM (kCostMinBlocks)
+COST_BATCH = 4  # fused_cost: observations in flight per thread (kCostBatch)
+INST_COLS = 9  # fused_cost: values of an instance table row (kInstCols)
+INST_TABLE_BYTES = 96 * 1024  # its cap on a block's table (kInstTableBytes)
+KERNELS_PER_CALL = {"fused_residual_jacobian": 1, "fused_cost": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +231,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.restype = _I
     for name in ("ba_cost_f32", "ba_cost_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = head + [_I, _P, _P, _P]
+        fn.argtypes = head + [_I, _I, _I, _P, _P, _P, _P]
         fn.restype = _I
 
 
@@ -315,9 +327,66 @@ fused_residual_jacobian.launches = 0
 
 
 def cost_blocks(n_obs: int) -> int:
-    """Blocks of the cost kernel's first pass: a function of O alone, so the
-    reduction order, and the sum, are the same on every call."""
+    """Blocks of `fused_cost_dense`'s first pass: a function of O alone, so
+    the reduction order, and the sum, are the same on every call."""
     return max(1, min(-(-n_obs // COST_BLOCK), COST_MAX_BLOCKS))
+
+
+def cost_plan(n_obs: int):
+    """(blocks, observations per thread) of `fused_cost`: block b sums
+    observations [b * span, (b + 1) * span), span = per_thread * COST_BLOCK,
+    thread t those at t + COST_BLOCK * k, k < per_thread.  No more blocks
+    than COST_BLOCKS_PER_SM on each SM (one wave), so up to 270,336
+    observations a thread's COST_BATCH loads are all in flight at once.  A
+    function of O alone, so the sum's order, and its bits, are the same on
+    every call."""
+    per_thread = max(1, -(-n_obs // (COST_BLOCK * SMS * COST_BLOCKS_PER_SM)))
+    return max(1, -(-n_obs // (COST_BLOCK * per_thread))), per_thread
+
+
+_tickets = {}
+
+
+def _ticket(device: torch.device) -> torch.Tensor:
+    """The device's ticket counter of the one-pass sum: allocated (zero) at
+    its first use, set back to zero by every launch that uses it."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    t = _tickets.get(index)
+    if t is None:
+        t = _tickets[index] = torch.zeros(
+            (1,), dtype=torch.int32, device=torch.device("cuda", index))
+    return t
+
+
+def cost_table_rows(n_inst: int, itemsize: int) -> int:
+    """Instances in a `fused_cost` block's table (a tile): all n_inst when
+    their rows fit INST_TABLE_BYTES (1,365 in f64, 2,730 in f32), else as
+    many as fit, the kernel then walking the instances in tiles of that
+    many.  A function of the shapes alone."""
+    return max(1, min(n_inst, INST_TABLE_BYTES // (INST_COLS * itemsize)))
+
+
+def _launch_cost(args, loss_id, loss_threshold, suffix, plan, tile_rows):
+    """Launches the cost kernel on `args` (the eight tensors of `fused_cost`,
+    checked, O > 0) with the grid `plan` = (blocks, per_thread) and tables
+    of `tile_rows` instances, counts the launch in `fused_cost.launches` and
+    returns the 0-d result.  `fused_cost` passes cost_plan(O) and
+    cost_table_rows; other values serve the card's checks and sweeps."""
+    obs_uv = args[6]
+    new = dict(dtype=obs_uv.dtype, device=obs_uv.device)
+    n_blocks, per_thread = plan
+    partials = torch.empty((n_blocks,), **new)
+    out = torch.empty((), **new)
+    fn = getattr(_lib(), f"ba_cost_{suffix}")
+    with torch.cuda.device(obs_uv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*_table_args(*args, loss_id, loss_threshold), n_blocks,
+                 per_thread, tile_rows, partials.data_ptr(),
+                 _ticket(obs_uv.device).data_ptr(), out.data_ptr(), stream)
+    _raise_on(err, "fused_cost")
+    fused_cost.launches += 1
+    return out
 
 
 def fused_cost(inst, cam, points, obs_inst, obs_cam, obs_point, obs_uv,
@@ -331,24 +400,14 @@ def fused_cost(inst, cam, points, obs_inst, obs_cam, obs_point, obs_uv,
         )
     if obs_uv.device.type != "cuda":
         raise ValueError(f"unsupported device {obs_uv.device}")
-    suffix, loss_id = _check_cuda(inst, cam, points, obs_inst, obs_cam,
-                                  obs_point, obs_uv, obs_inv_sd, loss)
+    args = (inst, cam, points, obs_inst, obs_cam, obs_point, obs_uv,
+            obs_inv_sd)
+    suffix, loss_id = _check_cuda(*args, loss)
     n = obs_uv.shape[0]
-    new = dict(dtype=obs_uv.dtype, device=obs_uv.device)
     if n == 0:
-        return torch.zeros((), **new)
-    n_blocks = cost_blocks(n)
-    partials = torch.empty((n_blocks,), **new)
-    out = torch.empty((), **new)
-    fn = getattr(_lib(), f"ba_cost_{suffix}")
-    with torch.cuda.device(obs_uv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*_table_args(inst, cam, points, obs_inst, obs_cam, obs_point,
-                              obs_uv, obs_inv_sd, loss_id, loss_threshold),
-                 n_blocks, partials.data_ptr(), out.data_ptr(), stream)
-    _raise_on(err, "fused_cost")
-    fused_cost.launches += 1
-    return out
+        return torch.zeros((), dtype=obs_uv.dtype, device=obs_uv.device)
+    return _launch_cost(args, loss_id, loss_threshold, suffix, cost_plan(n),
+                        cost_table_rows(inst.shape[0], obs_uv.element_size()))
 
 
 fused_cost.launches = 0

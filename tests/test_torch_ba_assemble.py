@@ -260,3 +260,124 @@ def test_cpu_tensors_never_launch():
     port_lm.bundle_adjust(port_lm.problem_from_numpy(problem),
                           max_iterations=2, device="cpu")
     assert [k.launches for k in kernels] == before
+
+
+BACKSUB_SHAPES = [(1, 128), (37, 1000), (64, 8192), (256, 1280)]
+
+
+@pytest.mark.parametrize("ni,n_points", BACKSUB_SHAPES)
+def test_backsub_plan_covers_every_point_once(ni, n_points):
+    """The back-substitution's blocks, block b taking points
+    [b * chunk, min((b + 1) * chunk, NP)) as the kernel does, cover every
+    point exactly once, with no empty block; the plan is a function of the
+    shapes alone."""
+    chunk, n_chunks = port_k.backsub_plan(ni, n_points)
+    seen = np.zeros(n_points, dtype=int)
+    for b in range(n_chunks):
+        p0 = b * chunk
+        n_here = min(chunk, n_points - p0)
+        assert n_here >= 1
+        seen[p0:p0 + n_here] += 1
+    assert (seen == 1).all()
+    assert port_k.backsub_plan(ni, n_points) == (chunk, n_chunks)
+
+
+def test_backsub_plan_shared_memory_within_cap():
+    """For every NI <= 256 a block's shared memory (per point of the chunk:
+    each slot thread's uv, inv_sd and three u values, and the point's 12
+    staged values; 8 bytes each in f64) fits the plan's 48 KB cap, and at
+    the dense lane the blocks fill the card."""
+    for ni in range(1, port_k.MAX_NI + 1):
+        threads = -(-ni // 32) * 32
+        for n_points in (1, 128, 1000, 8192, 16384, 10 ** 6):
+            chunk, n_chunks = port_k.backsub_plan(ni, n_points)
+            smem = 8 * chunk * (6 * threads + 12)
+            assert port_k.backsub_smem(ni, chunk) == smem
+            assert smem <= port_k.BACKSUB_SMEM
+            assert (n_chunks - 1) * chunk < n_points <= n_chunks * chunk
+    assert port_k.backsub_plan(64, 8192)[1] >= port_k.SMS
+
+
+def _contracted_back_substitute(inst, cam, points, obs_uv, obs_inv_sd, out_pt,
+                                dx_i, dx_cam, loss, loss_threshold):
+    """The CUDA back-substitution's arithmetic (csrc/ba_assemble.cu,
+    BacksubSlot and backsub_u) in PyTorch: per slot R(w) and its
+    derivative along dw, M = dR[dw]; per slot and point
+    u = s^2 R^T A^T (A (M x + dt) + (u, v) c) with
+    s^2 = inv_sd^2 max(rho', 1e-12)."""
+    from opensfm_tpu_torch.ba.lm import LOSSES
+    from opensfm_tpu_torch.geometry.rotation import hat, rodrigues_coeffs
+
+    ni, n_p = inst.shape[0], points.shape[0]
+    w, t, dw, dt = inst[:, :3], inst[:, 3:], dx_i[:, :3], dx_i[:, 3:]
+    cos_t, sinc, ccos, sp, gp = rodrigues_coeffs((w * w).sum(-1), derivs=True)
+    wd = (w * dw).sum(-1)
+    eye = torch.eye(3, dtype=inst.dtype)
+    outer = w[:, :, None] * w[:, None, :]
+    R = (cos_t[:, None, None] * eye + sinc[:, None, None] * hat(w)
+         + ccos[:, None, None] * outer)
+    M = ((-wd * sinc)[:, None, None] * eye + (wd * sp)[:, None, None] * hat(w)
+         + (wd * gp)[:, None, None] * outer + sinc[:, None, None] * hat(dw)
+         + ccos[:, None, None] * (dw[:, :, None] * w[:, None, :]
+                                  + w[:, :, None] * dw[:, None, :]))
+    X = torch.einsum("amn,pn->pam", R, points) + t
+    dX = torch.einsum("amn,pn->pam", M, points) + dt
+    k1, k2, f = cam[0, 0], cam[0, 1], cam[0, 2]
+    dk1, dk2, df = dx_cam[0, 0], dx_cam[0, 1], dx_cam[0, 2]
+    iz = 1.0 / X[..., 2]
+    u, v = X[..., 0] * iz, X[..., 1] * iz
+    r2 = u * u + v * v
+    d = 1.0 + r2 * (k1 + k2 * r2)
+    uv = obs_uv.reshape(n_p, ni, 2)
+    isd = obs_inv_sd.reshape(n_p, ni)
+    e0 = (f * d * u - uv[..., 0]) * isd
+    e1 = (f * d * v - uv[..., 1]) * isd
+    inv_a2 = 1.0 / float(loss_threshold) ** 2
+    s2 = isd * isd * torch.clamp_min(
+        LOSSES[loss][1]((e0 * e0 + e1 * e1) * inv_a2), 1e-12)
+    fd, fdd = f * d, 2.0 * f * (k1 + 2.0 * k2 * r2)
+    P00, P01, P11 = fd + fdd * u * u, fdd * u * v, fd + fdd * v * v
+    A = torch.stack([
+        torch.stack([P00, P01, -(P00 * u + P01 * v)], -1),
+        torch.stack([P01, P11, -(P01 * u + P11 * v)], -1)], -2) \
+        * iz[..., None, None]
+    c = f * r2 * (dk1 + dk2 * r2) + df * d
+    tk = torch.einsum("pakm,pam->pak", A, dX) + torch.stack([u, v], -1) \
+        * c[..., None]
+    g = torch.einsum("pakm,pak->pam", A, tk)
+    ug = s2[..., None] * torch.einsum("amj,pam->paj", R, g)
+    H = out_pt[:, [0, 1, 2, 1, 3, 4, 2, 4, 5]].reshape(-1, 3, 3)
+    return torch.einsum("pjk,pk->pj", H, out_pt[:, 6:9] - ug.sum(1))
+
+
+@pytest.mark.parametrize("loss", LOSSES)
+def test_contracted_back_substitution_matches_twin_and_xla(loss):
+    """The kernel's contracted arithmetic (the Jacobian never formed) gives
+    the plain twin's point updates within 1e-12 and the reference's XLA
+    dense back-substitution within 1e-10 of the largest entry, f64, with a
+    near-zero rotation (the small-angle series) among the slots."""
+    problem = _problem(8, 256, seed=7, loss=loss)
+    problem.inst[2, :3] = 1e-9
+    ni, nr, nc, pmax, lam = 8, 1, 1, 3, 1e-3
+    state_r, data_r = _ref_state_data(problem, jnp.float64)
+    state_p, data_p = _port_state_data(problem, torch.float64)
+    S_r, b_r, back_r = ref_lm._build_reduced_system(
+        state_r, data_r, jnp.float64(lam), "perspective", loss, 1.0, pmax,
+        ni, nr, nc, False, True, False, False, True)
+    _, _, back_p = port_lm._build_reduced_system_fused(
+        state_p, data_p, lam, loss, 1.0, ni, nr, nc, pmax)
+    dx = np.linalg.solve(np.asarray(S_r), np.asarray(b_r))
+    dx_i = dx[:6 * ni].reshape(ni, 6)
+    dx_cam = dx[6 * (ni + nr):].reshape(nc, pmax)
+    want = ref_lm._back_substitute(back_r, jnp.asarray(dx_i),
+                                   jnp.asarray(dx[6 * ni:6 * (ni + nr)])
+                                   .reshape(nr, 6), jnp.asarray(dx_cam), ni,
+                                   pmax)
+    fused = back_p["fused"]
+    args = (fused["inst"], fused["cam"], fused["points"], fused["obs_uv"],
+            fused["obs_inv_sd"], fused["out_pt"], torch.as_tensor(dx_i),
+            torch.as_tensor(dx_cam))
+    got = _contracted_back_substitute(*args, loss, 1.0)
+    twin = port_k.fused_back_substitute_plain(*args, loss, 1.0)
+    assert _max_rel(got, twin) < 1e-12
+    assert _max_rel(got, want) < 1e-10

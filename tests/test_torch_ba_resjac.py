@@ -178,3 +178,43 @@ def test_cpu_tensors_never_launch():
     port_k.fused_cost(*args, "SoftLOneLoss", 1.0)
     assert (port_k.fused_residual_jacobian.launches,
             port_k.fused_cost.launches) == before
+
+
+@pytest.mark.parametrize("n_obs", [1, 255, 262_144, 262_147])
+def test_cost_plan_covers_each_observation_once(n_obs):
+    """The one-pass cost kernel's indexing (block b, thread t, step k:
+    o = b * per_thread * 256 + t + 256 k, k < per_thread, o < O, as
+    csrc/ba_resjac.cu's cost_kernel computes it) reaches every observation
+    exactly once, every block has work, the grid is one wave at the plan's
+    residency, and the plan is a function of O alone."""
+    n_blocks, per_thread = port_k.cost_plan(n_obs)
+    assert per_thread >= 1
+    assert n_blocks <= port_k.SMS * port_k.COST_BLOCKS_PER_SM
+    b = np.arange(n_blocks)[:, None, None]
+    t = np.arange(port_k.COST_BLOCK)[None, :, None]
+    k = np.arange(per_thread)[None, None, :]
+    o = (b * per_thread * port_k.COST_BLOCK + t + port_k.COST_BLOCK * k)
+    o = o[o < n_obs]
+    assert np.array_equal(np.sort(o), np.arange(n_obs))
+    assert (n_blocks - 1) * per_thread * port_k.COST_BLOCK < n_obs
+    assert port_k.cost_plan(n_obs) == (n_blocks, per_thread)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("n_inst", [0, 1, 256, 1365, 1366, 2731, 5000])
+def test_cost_table_tiles_cover_each_instance_once(n_inst, itemsize):
+    """The one-pass cost kernel's instance tiles (lo = 0, rows, 2 rows, ...
+    while lo < n_inst, one pass at least, as csrc/ba_resjac.cu's cost_kernel
+    walks them) hold every instance exactly once; a tile fits the block's
+    table; a map whose rows all fit takes a single tile."""
+    rows = port_k.cost_table_rows(n_inst, itemsize)
+    assert rows >= 1
+    assert rows * port_k.INST_COLS * itemsize <= port_k.INST_TABLE_BYTES
+    seen = np.zeros(n_inst, dtype=int)
+    tiles, lo = 0, 0
+    while lo == 0 or lo < n_inst:
+        seen[lo:lo + max(0, min(rows, n_inst - lo))] += 1
+        tiles, lo = tiles + 1, lo + rows
+    assert (seen == 1).all()
+    fits = n_inst * port_k.INST_COLS * itemsize <= port_k.INST_TABLE_BYTES
+    assert (tiles == 1) == fits
