@@ -8,8 +8,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     one nvcc per source, all at once, beside a probe of the f64 mma.sync
     shapes ptxas takes; print ptxas's registers and spills (the tensor-core
     top-2 kernels, the f64 tensor-core product, the residual/Jacobian
-    kernels, the cost kernel and the back-substitution must not spill;
-    the last two's registers and stack frames are printed);
+    kernels, both cost kernels, the back-substitution and the ablation
+    product must not spill; the registers and stack frames of the last
+    four and of the f64 tensor-core product are printed);
  2. hold every kernel against its plain PyTorch version on the card, in f32
     and f64, for all five losses: the residual/Jacobian and cost kernels in
     the canonical T=8 layout at O = 262,144, in a ragged gathered layout,
@@ -21,7 +22,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     the dense-layout assembly, back-substitution and cost kernels on the
     64 x 8,192 dense grid and the ragged grids DENSE_RAGGED, with dead
     slots, fixed instances and points and point priors, bit-equal across
-    two calls;
+    two calls; the dense cost also with its instance table walked in tiles
+    of 16 rows, NaN from a NaN point whose slots are all dead, and on grids
+    of more instances than one table holds (COST_DENSE_WIDE: two tiles);
  3. the `bundle` command, through the command runner, on a synthetic mono
     perspective map of 256 shots x 32,768 points x tracks of 8 (f64, the
     product default), with the kernels' launch counts read around it;
@@ -45,9 +48,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     uint8 ones wider than 258 (the FP32 kernel, within 1e-4 of
     sq1 + sq2), at ragged sizes and with fewer than 16 rows; and its
     device launches per call at 8,192^2 (a trace of 20 calls, which must
-    read the wrapper's 2); then the cost's and back-substitution's device
-    launches per call (one trace of 20 calls each, which must read each
-    wrapper's 1);
+    read the wrapper's 2); then the two cost kernels' and the
+    back-substitution's device launches per call (one trace of 20 calls
+    each, which must read each wrapper's 1);
  9. the `match_features` command, through the command runner, on a
     synthetic dataset of 32 images x 8,192 features (4,096 true, 4,096
     distractors; 496 pairs), with the kernel's launches read around it and
@@ -62,8 +65,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     one pair's `match` (two searches and RANSAC);
 13. the dense-assembly ablation profiler (`python -m
     opensfm_tpu_torch.tools.profile_kernel_variants`): each of its five
-    modes' kernels against its plain version at 64 x 8,192 (f32), then the
-    tool's timings beside each mode's bound.
+    modes' kernels against its plain version at 64 x 8,192 and on a ragged
+    37 x 1,000 grid (f32), bit-equal across two calls, then the tool's
+    timings beside each mode's bound, and the product step alone beside
+    torch.mm(op_a.T, op_g) on the same operands (FP32, no TF32).
 Then the card's name and power limit, one {"kernels": [...]} JSON line, and
 as the last line {"ok": true, "device": {...}}.
 """
@@ -94,8 +99,13 @@ PEAK_INT8_OPS = 1979e12
 # chain with the 24 Jacobian entries; that plus the assembly's weighting,
 # masks, per-point sums, Schur factor and 81 slot sums; and the
 # back-substitution's contracted chain (backsub_u, 133 with SoftLOne's
-# weight) and its three slot sums.
+# weight) and its three slot sums.  The dense cost (cost_dense_kernel) does
+# the chain from the table's rotation coefficients (chain_fwd's overload:
+# 48), SoftLOne's cost (13) and its sum (1) per slot, and a rotation
+# (Rodrigues without derivatives: 13, as in FLOPS_COST_OBS) per instance.
 FLOPS_COST_OBS = 75
+FLOPS_COST_DENSE_SLOT = 62
+FLOPS_ROTATION = 13
 FLOPS_RESJAC_OBS = 330
 FLOPS_ASSEMBLE_SLOT = 830
 FLOPS_BACKSUB_SLOT = 136
@@ -402,13 +412,66 @@ def check_dense_kernels(problems, dev="cuda"):
                   "fused_cost_dense is deterministic")
             w = worst["fused_cost_dense"]
             w[key] = max(w.get(key, 0.0), abs(tot - tot_ref))
-        log(f"  {key} dense {base[2].shape[0]} x {base[0].shape[0]}: "
-            f"5 losses within tolerance")
+            # The instance table walked in tiles of 16 rows (the path of a
+            # grid wider than one table) sums in another order.
+            plan = A.cost_dense_plan(base[0].shape[0], base[2].shape[0],
+                                     base[3].element_size())
+            tiled = float(A._launch_cost_dense(
+                base, *A._check_cuda(*base, loss), 1.0, plan[:2] + (16,)))
+            rel = abs(tiled - tot_ref) / abs(tot_ref)
+            check(rel <= tol["total"], f"dense cost in tiles of 16 instances "
+                  f"{key} rel {rel:.3g} ({loss})")
+        # Dead slots count: a NaN point whose slots are all dead gives NaN
+        # in both versions.
+        ni = base[0].shape[0]
+        pts, isd = base[2].clone(), base[4].clone()
+        pts[1] = float("nan")
+        isd[ni:2 * ni] = 0.0
+        nan_args = (base[0], base[1], pts, base[3], isd)
+        check(np.isnan(float(A.fused_cost_dense(*nan_args, "SoftLOneLoss",
+                                                1.0)))
+              and np.isnan(float(A.fused_cost_dense_plain(
+                  *nan_args, "SoftLOneLoss", 1.0))),
+              f"dense cost NaN from a dead NaN slot ({key})")
+        log(f"  {key} dense {base[2].shape[0]} x {ni}: 5 losses within "
+            f"tolerance; dense cost bit-equal twice (plan {plan}), in tiles "
+            f"of 16 instances, NaN from dead NaN slots")
     return worst
 
 
-def check_launches_1_5(big, dense64, calls: int = 20):
-    """Rows 1 and 5's device kernels per call at the path's shapes (f64):
+# Dense grids wider than the dense cost's instance table, as (NI, NP,
+# dtype): two tiles of cost_table_rows (1,365 instances f64, 2,730 f32).
+COST_DENSE_WIDE = ((1500, 128, torch.float64), (3000, 128, torch.float32))
+
+
+def check_cost_dense_wide(make_problem, worst, dev="cuda"):
+    """Phase 2: the dense cost on COST_DENSE_WIDE, within TOL_DENSE of its
+    plain version, bit-equal across two calls."""
+    from opensfm_tpu_torch.ops.kernels import ba_assemble as A
+
+    for ni, n_p, dtype in COST_DENSE_WIDE:
+        key = str(dtype)[6:]
+        base, _, _ = dense_kernel_inputs(make_problem(ni, n_p), dtype,
+                                         torch.device(dev), seed=11)
+        plan = A.cost_dense_plan(ni, n_p, base[3].element_size())
+        check(plan[2] < ni < 2 * plan[2] + 1,
+              f"{ni} instances take two table tiles ({plan})")
+        for loss in LOSSES:
+            tot = float(A.fused_cost_dense(*base, loss, 1.0))
+            tot_ref = float(A.fused_cost_dense_plain(*base, loss, 1.0))
+            rel = abs(tot - tot_ref) / abs(tot_ref)
+            check(rel <= TOL_DENSE[dtype]["total"], f"dense cost on {ni} "
+                  f"instances {key} rel {rel:.3g} ({loss})")
+            check(float(A.fused_cost_dense(*base, loss, 1.0)) == tot,
+                  "fused_cost_dense is deterministic")
+            w = worst["fused_cost_dense"]
+            w[key] = max(w.get(key, 0.0), abs(tot - tot_ref))
+        log(f"  {key} dense {n_p} x {ni}: dense cost in two table tiles "
+            f"(plan {plan}), 5 losses within tolerance, bit-equal twice")
+
+
+def check_launches_1_3_5(big, dense64, calls: int = 20):
+    """Rows 1, 3 and 5's device kernels per call at the path's shapes (f64):
     one torch.profiler trace of `calls` calls of each, its kernels counted
     by name (and no other device activity); each count must read the
     wrapper's stated one.  Run after phase 8's traces, which then see the
@@ -424,6 +487,8 @@ def check_launches_1_5(big, dense64, calls: int = 20):
                                            torch.device("cuda"), seed=13)
     out_pt = A.fused_schur_assembly(*base, *extras, "SoftLOneLoss", 1.0)[0]
     fns = {"fused_cost": lambda: K.fused_cost(*args, "SoftLOneLoss", 1.0),
+           "fused_cost_dense": lambda: A.fused_cost_dense(
+               *base, "SoftLOneLoss", 1.0),
            "fused_back_substitute": lambda: A.fused_back_substitute(
                *base, out_pt, *dx, "SoftLOneLoss", 1.0)}
     for fn in fns.values():
@@ -436,19 +501,20 @@ def check_launches_1_5(big, dense64, calls: int = 20):
                 fn()
         torch.cuda.synchronize()
     _, n_dev, rows = device_time(prof)
-    kernel = {"fused_cost": "cost_kernel", "fused_back_substitute":
-              "backsub_kernel"}
-    per_call = {name: sum(n for _, n, k in rows if f"::{kernel[name]}<" in k)
-                / calls for name in fns}
+    per_call = {name: sum(n for _, n, k in rows
+                          if f"::{ROW_KERNEL[name]}<" in k) / calls
+                for name in fns}
     stated = {"fused_cost": K.KERNELS_PER_CALL["fused_cost"],
+              "fused_cost_dense": A.KERNELS_PER_CALL["fused_cost_dense"],
               "fused_back_substitute":
                   A.KERNELS_PER_CALL["fused_back_substitute"]}
     check(n_dev == sum(per_call.values()) * calls,
-          f"rows 1 and 5's trace holds only their kernels ({n_dev} events)")
+          f"rows 1, 3 and 5's trace holds only their kernels ({n_dev} "
+          f"events)")
     for name, n in per_call.items():
         check(n == stated[name], f"{name}: {n} launches per call traced, "
               f"{stated[name]} stated")
-    log(f"  rows 1 and 5, launches per call ({calls} calls each traced): "
+    log(f"  rows 1, 3 and 5, launches per call ({calls} calls each traced): "
         f"{per_call}")
     return per_call
 
@@ -670,7 +736,8 @@ def time_dense_kernels(problem, rows):
         _time_row(rows, "fused_cost_dense", dtype,
                   lambda: A.fused_cost_dense(*base, loss, 1.0),
                   lambda: A.fused_cost_dense_plain(*base, loss, 1.0),
-                  None, obs + fb, slots * FLOPS_COST_OBS)
+                  None, obs + fb,
+                  slots * FLOPS_COST_DENSE_SLOT + ni * FLOPS_ROTATION)
 
 
 def time_kernels(problem):
@@ -1245,40 +1312,81 @@ def profile_match_pair(path):
 VARIANT_SHOTS, VARIANT_POINTS = 64, 8192  # the TPU script's problem
 
 
+# A ragged ablation grid beside the profiler's: 6 NI = 222 (two ragged
+# 128-wide product tiles, rows of 224 floats with a half-filled last
+# 16-byte piece), K = 3,000 (not a multiple of the 16-row stage).
+VARIANT_RAGGED = (37, 1000)
+
+
 def check_assembly_variants():
     """Phase 13: each mode's kernel against its plain version on the card,
-    at the profiler's 64 x 8,192 problem, f32: every written out_obs row and
-    s_ii within TOL_DENSE[f32]["out"] of its largest entry.  Returns (the
-    inputs, the worst absolute difference)."""
+    at the profiler's 64 x 8,192 problem and on VARIANT_RAGGED, f32: every
+    written out_obs row and s_ii within TOL_DENSE[f32]["out"] of its largest
+    entry, the same bits twice.  Returns (the profiler problem's inputs, the
+    worst absolute difference)."""
     from opensfm_tpu_torch.ops.kernels import assembly_variants as V
     from opensfm_tpu_torch.tools import profile_kernel_variants as tool
 
     tol = TOL_DENSE[torch.float32]["out"]
-    args = tool.variant_inputs(
-        tool.dense_problem(VARIANT_SHOTS, VARIANT_POINTS), torch.device("cuda"))
     worst = 0.0
-    for mode in V.MODES:
-        got = V.assembly_variant(mode, *args)
-        want = V.assembly_variant_plain(mode, *args)
-        again = V.assembly_variant(mode, *args)
-        torch.cuda.synchronize()
-        rows = V.rows_written(mode)
-        pairs = [(f"out_obs[{r}]", got[0][r], want[0][r]) for r in range(rows)]
-        pairs.append(("s_ii", got[1], want[1]))
-        rel = 0.0
-        for name, a, b in pairs:
-            check(bool(torch.isfinite(a).all()), f"{mode} {name} finite")
-            rel = max(rel, _rel(a, b))
-            worst = max(worst, float((a - b).abs().max()))
-        check(rel <= tol, f"assembly_variant {mode}: rel {rel:.3g}")
-        check(torch.equal(got[0][:rows], again[0][:rows])
-              and torch.equal(got[1], again[1]),
-              f"assembly_variant {mode} is deterministic")
-        check(bool((got[1].abs().max() > 0) == V.has_product(mode)),
-              f"assembly_variant {mode}: s_ii zero exactly without product")
-        log(f"  {mode}: {rows} out_obs rows and s_ii within {tol:g} "
-            f"(largest rel {rel:.3g})")
-    return args, worst
+    for shots, points in ((VARIANT_SHOTS, VARIANT_POINTS), VARIANT_RAGGED):
+        args = tool.variant_inputs(tool.dense_problem(shots, points),
+                                   torch.device("cuda"))
+        if shots == VARIANT_SHOTS:
+            lane = args
+        for mode in V.MODES:
+            got = V.assembly_variant(mode, *args)
+            want = V.assembly_variant_plain(mode, *args)
+            again = V.assembly_variant(mode, *args)
+            torch.cuda.synchronize()
+            rows = V.rows_written(mode)
+            pairs = [(f"out_obs[{r}]", got[0][r], want[0][r])
+                     for r in range(rows)]
+            pairs.append(("s_ii", got[1], want[1]))
+            rel = 0.0
+            for name, a, b in pairs:
+                check(bool(torch.isfinite(a).all()), f"{mode} {name} finite")
+                rel = max(rel, _rel(a, b))
+                worst = max(worst, float((a - b).abs().max()))
+            check(rel <= tol, f"assembly_variant {mode} {shots} x {points}: "
+                  f"rel {rel:.3g}")
+            check(torch.equal(got[0][:rows], again[0][:rows])
+                  and torch.equal(got[1], again[1]),
+                  f"assembly_variant {mode} is deterministic")
+            check(bool((got[1].abs().max() > 0) == V.has_product(mode)),
+                  f"assembly_variant {mode}: s_ii zero exactly without "
+                  f"product")
+            log(f"  {mode} {shots} x {points}: {rows} out_obs rows and s_ii "
+                f"within {tol:g} (largest rel {rel:.3g}), bit-equal twice")
+    return lane, worst
+
+
+def time_product_step(args):
+    """Phase 13: the `full` mode's product step alone (`assembly_product`:
+    split product and fixed-order sum) beside torch.mm(op_a.T, op_g), FP32
+    with TF32 off, on the same operands (the plain slot pass's, [3 NP,
+    6 NI]); both timed by `_time_ms`.  The port never calls torch.mm here:
+    it is the yardstick of what FP32 SIMT reaches on this card.  Returns
+    (kernel ms, torch.mm ms)."""
+    from opensfm_tpu_torch.ops.kernels import assembly_variants as V
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is off")
+    op_a, op_g = (t.contiguous() for t in V.operands_plain("full", *args))
+    got = V.assembly_product(op_a, op_g)
+    want = torch.mm(op_a.T, op_g)
+    rel = _rel(got, want)
+    check(rel <= TOL_DENSE[torch.float32]["out"],
+          f"the product step against torch.mm: rel {rel:.3g}")
+    check(torch.equal(got, V.assembly_product(op_a, op_g)),
+          "the product step is deterministic")
+    ms = _time_ms(lambda: V.assembly_product(op_a, op_g))
+    mm_ms = _time_ms(lambda: torch.mm(op_a.T, op_g))
+    K, n = op_a.shape
+    log(f"  product step, operands [{K}, {n}] f32: assembly_product "
+        f"{ms:.4f} ms ({2 * n * n * K / ms / 1e9:.1f} TFLOP/s), "
+        f"torch.mm(op_a.T, op_g) {mm_ms:.4f} ms "
+        f"({2 * n * n * K / mm_ms / 1e9:.1f} TFLOP/s); within {rel:.3g}")
+    return ms, mm_ms
 
 
 def time_assembly_variants(args, rows):
@@ -1352,23 +1460,38 @@ def ptxas_spills(ptxas: str):
             for k, v in ptxas_report(ptxas).items()}
 
 
+# Wrapper -> the kernel entry that ptxas reports and the trace counts for it.
+ROW_KERNEL = {"fused_cost": "cost_kernel",
+              "fused_cost_dense": "cost_dense_kernel",
+              "fused_back_substitute": "backsub_kernel",
+              "assembly_variant": "product_kernel"}
+
+
 def redesigned_ptxas(libs_log):
-    """Phase 1: registers, stack frame and spills of rows 1 and 5's kernels
-    (cost_kernel and backsub_kernel: 2 types x 5 losses each), summarised
-    per kernel and type; fails on a spill."""
+    """Phase 1: registers, stack frame and spills of the redesigned kernels
+    (rows 1, 3 and 5: 2 types x 5 losses each; row 4's f64 tensor-core
+    product; row 7's product), summarised per kernel and type; fails on a
+    spill."""
+    from opensfm_tpu_torch.ops.kernels import assembly_variants as V
     from opensfm_tpu_torch.ops.kernels import ba_assemble as A
     from opensfm_tpu_torch.ops.kernels import ba_resjac as K
 
     summary = {}
-    for source, key, count in ((K.SOURCE, "cost_kernel", 10),
-                               (A.SOURCE, "backsub_kernel", 10)):
+    for source, key, count, types in (
+            (K.SOURCE, "cost_kernel", 10, ("f64", "f32")),
+            (A.SOURCE, "cost_dense_kernel", 10, ("f64", "f32")),
+            (A.SOURCE, "backsub_kernel", 10, ("f64", "f32")),
+            (A.SOURCE, "syrk_dmma_kernel", 1, ("f64",)),
+            (V.SOURCE, "product_kernel", 1, ("f32",))):
         found = {k: v for k, v in ptxas_report(libs_log[source][1]).items()
                  if f"{len(key)}{key}" in k}
         check(len(found) == count,
               f"{count} {key} instantiations in ptxas's report, "
               f"{len(found)} found")
-        for dt, tag in (("f64", "Id"), ("f32", "If")):
-            rows = [v for k, v in found.items() if f"{key}{tag}" in k]
+        for dt in types:
+            tag = {"f64": "Id", "f32": "If"}[dt]
+            rows = [v for k, v in found.items()
+                    if len(types) == 1 or f"{key}{tag}" in k]
             summary[f"{key} {dt}"] = dict(
                 regs=sorted({r["regs"] for r in rows}),
                 stack=sorted({r["stack"] for r in rows}),
@@ -1475,8 +1598,8 @@ def main() -> int:
     check(len(redesigned) == 11
           and all(v == (0, 0) for v in redesigned.values()),
           "the DMMA product and the resjac kernels do not spill")
-    ptxas_rows_1_5 = redesigned_ptxas(_build.BUILD_LOG)
-    for key, v in ptxas_rows_1_5.items():
+    ptxas_rows = redesigned_ptxas(_build.BUILD_LOG)
+    for key, v in ptxas_rows.items():
         log(f"  {key}: registers {v['regs']}, stack frame {v['stack']} B, "
             f"spill (stores, loads) {v['spill']}")
 
@@ -1487,6 +1610,7 @@ def main() -> int:
     worst = check_kernels(big, sb.make_problem(3000, 65536, track_window=8))
     worst.update(check_dense_kernels(
         [dense64] + [sb.make_problem(ni, n_p) for ni, n_p in DENSE_RAGGED]))
+    check_cost_dense_wide(sb.make_problem, worst)
     log(f"  done in {time.perf_counter() - t0:.1f} s; worst abs err {worst}")
 
     log("phase 3: bundle command, 256 x 32768 x K=8, f64")
@@ -1518,7 +1642,7 @@ def main() -> int:
     worst["top2_sqdist"], top2_per_call = check_top2()
     log(f"  done in {time.perf_counter() - t0:.1f} s; worst abs err "
         f"{worst['top2_sqdist']}")
-    per_call_1_5 = check_launches_1_5(big, dense64)
+    per_call_1_3_5 = check_launches_1_3_5(big, dense64)
 
     log(f"phase 9: match_features command, {MATCH_SHOTS} images x "
         f"{MATCH_FEATURES} features")
@@ -1549,6 +1673,7 @@ def main() -> int:
     t0 = time.perf_counter()
     variant_args, worst["assembly_variant"] = check_assembly_variants()
     variant_launches = time_assembly_variants(variant_args, rows)
+    variant_product_ms, variant_mm_ms = time_product_step(variant_args)
     log(f"  done in {time.perf_counter() - t0:.1f} s; launches "
         f"{variant_launches}")
 
@@ -1572,6 +1697,9 @@ def main() -> int:
                 ms_by_mode={k: v["ms"] for k, v in by_mode.items()},
                 plain_ms_by_mode={k: v["plain_ms"] for k, v in by_mode.items()},
                 bound_ms_by_mode={k: v["bound_ms"] for k, v in by_mode.items()},
+                product_step_ms=variant_product_ms,
+                product_step_torch_mm_ms=variant_mm_ms,
+                ptxas=ptxas_rows["product_kernel f32"],
             ))
             continue
         if name == "top2_sqdist":
@@ -1612,12 +1740,10 @@ def main() -> int:
         if name == "fused_schur_assembly":
             kernels[-1].update(sub_kernel_ms=schur_split,
                                product_step_torch_mm_ms=product_mm_ms)
-        if name in per_call_1_5:
-            ptx = {k.split()[1]: v for k, v in ptxas_rows_1_5.items()
-                   if k.startswith({"fused_cost": "cost_kernel",
-                                    "fused_back_substitute":
-                                        "backsub_kernel"}[name])}
-            kernels[-1].update(launches_per_call=per_call_1_5[name],
+        if name in per_call_1_3_5:
+            ptx = {k.split()[1]: v for k, v in ptxas_rows.items()
+                   if k.split()[0] == ROW_KERNEL[name]}
+            kernels[-1].update(launches_per_call=per_call_1_3_5[name],
                                ptxas=ptx)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -53,13 +53,18 @@
 // (about a quarter of the operations), and one barrier per chunk instead of
 // a block reduction per point.
 // fused_cost_dense is the cost over the dense grid with the indices implied
-// by the slot number (no index arrays): a grid-stride loop, a fixed tree per
-// block and a second single-block pass.  It reads ~24 B per slot in f64 and
-// is memory- and latency-bound.
+// by the slot number (no index arrays).  It reads ~24 B per slot in f64
+// (12.6 MB at 64 x 8,192, ~3.8 us at 3.35 TB/s) against ~62 operations a
+// slot once the rotation is hoisted: bytes bound it, and at this size so do
+// latency and fixed costs.  So it is fused_cost's one-launch design on a
+// layout that needs no gathers (cost_dense_kernel): a block owns whole grid
+// rows, stages their points once, builds the instances' rotation table in
+// shared memory (tiles past kInstTableBytes), walks its slots with no
+// divide, and the last block adds the block sums in block order.
 //
 // Interface: plain C functions (ctypes), launched on the caller's stream; each
 // returns the first non-zero cudaGetLastError() after its launches (or -1 for
-// an unknown loss).
+// an unknown loss, -2 for a plan the kernel does not take).
 
 #include <cuda_runtime.h>
 
@@ -167,19 +172,6 @@ __device__ __forceinline__ void sym3_inv(const T* h, T* hi) {
   hi[3] = c_yy * inv_det;
   hi[4] = c_yz * inv_det;
   hi[5] = c_zz * inv_det;
-}
-
-// Loads the instance row of slot a, the camera and point p into v.
-template <typename T>
-__device__ __forceinline__ void dense_vals(const T* inst, const T* cam,
-                                           const T* points, int a, long long p,
-                                           T* v) {
-#pragma unroll
-  for (int k = 0; k < 6; ++k) v[k] = inst[6 * a + k];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) v[6 + k] = cam[k];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) v[9 + k] = points[3 * p + k];
 }
 
 // Accumulator rows of assemble_kernel (each a column of blockDim.x values):
@@ -560,55 +552,6 @@ constexpr int kDmmaThreads = 128;
 constexpr size_t kDmmaSmem =
     sizeof(double) * kDmmaStages * 2 * kDmmaK * kDmmaLd;  // 52,224 B
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-// The back-substitution's copies.  Their asm names memory as clobbered:
-// the compiler sees no store to the staged shared memory otherwise, and
-// may then treat its reads as reads of memory never written (with other
-// register limits this kernel read wrong values without it).  The product's
-// helpers above stay as they are, with the code they compile to.
-//
-// An N-byte (4, 8 or 16) asynchronous copy, both addresses N-byte aligned.
-template <int N>
-__device__ __forceinline__ void cp_async_n(void* smem, const void* gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
-               "l"(gmem), "n"(N)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit_m() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait_m() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// Waits until at most n of this thread's copy groups are pending (n >= 7:
-// at most 7, which completes every group but the last 7).
-__device__ __forceinline__ void cp_async_wait_upto(int n) {
-  switch (n < 7 ? n : 7) {
-    case 0: cp_async_wait_m<0>(); break;
-    case 1: cp_async_wait_m<1>(); break;
-    case 2: cp_async_wait_m<2>(); break;
-    case 3: cp_async_wait_m<3>(); break;
-    case 4: cp_async_wait_m<4>(); break;
-    case 5: cp_async_wait_m<5>(); break;
-    case 6: cp_async_wait_m<6>(); break;
-    default: cp_async_wait_m<7>(); break;
-  }
-}
-
 // d += a (16 x 8, row) * b (8 x 8, col), f64, one warp.  Fragments (g = lane
 // / 4, t = lane % 4): a[i] = A[g + 8 (i % 2)][t + 4 (i / 2)], b[i] =
 // B[t + 4 i][g], d[i] = D[g + 8 (i / 2)][2 t + i % 2].
@@ -960,7 +903,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                             a < 3 ? points + 3 * p + a
                                   : out_pt + p * kPt + a - 3);
     }
-    cp_async_commit_m();
+    cp_async_commit();
   }
   // Every thread builds a slot (threads past NI that of slot NI - 1, unused).
   BacksubSlot<T> S;
@@ -1008,31 +951,113 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+constexpr int kCostDenseBatch = 4;  // slots a thread has in flight
+
+// fused_cost_dense in one launch.  Block b owns the whole grid rows of
+// points [b * pts, min((b + 1) * pts, NP)) (pts <= kCostBlock, from the
+// wrapper's cost_dense_plan), and first stages their coordinates in shared
+// memory, each point loaded once.  It walks the instances in tiles of
+// tile_rows (all NI at once when their rows fit kInstTableBytes): for each
+// tile it fills the instance table (pose and rotation coefficients,
+// fill_inst_table: a rotation per instance and block, none per slot) and
+// sums the tile's slots of its rows, seen as a [rows_here, tile] grid walked
+// row-major: thread t takes the cells t, t + kCostBlock, ... in order,
+// kCostDenseBatch at a time, carrying its (point, instance) from cell to
+// cell by a constant step (no divide per slot).  A batch's uv (one 16- or
+// 8-byte vector) and inv_sd are loaded together, the first batch's before
+// the table fill so that the loads overlap the rotations.  Every slot adds
+// its term, dead ones (inv_sd = 0) too, as the plain version does: a NaN
+// prediction there reaches the total.  Each term is chain_fwd's (the
+// overload from the table's coefficients keeps its bits).  The block sums
+// go out through grid_sum_last_block (one ticket counter per device, shared
+// with fused_cost).  Grid, pts and tile_rows are functions of (NI, NP,
+// dtype), so the sum's order, and its bits, are the same on every call.
 template <typename T, int LOSS>
-__global__ void __launch_bounds__(kCostBlock)
+__global__ void __launch_bounds__(kCostBlock, kCostMinBlocks)
     cost_dense_kernel(const T* __restrict__ inst, const T* __restrict__ cam,
                       const T* __restrict__ points,
                       const T* __restrict__ obs_uv,
-                      const T* __restrict__ obs_inv_sd, int ni,
-                      long long n_slots, T a2, T* __restrict__ partials) {
-  T acc = T(0);
-  const long long stride = (long long)gridDim.x * kCostBlock;
-  for (long long o = (long long)blockIdx.x * kCostBlock + threadIdx.x;
-       o < n_slots; o += stride) {
-    const long long p = o / ni;
-    const int a = (int)(o - p * ni);
-    T v[12], q0, q1;
-    dense_vals(inst, cam, points, a, p, v);
-    chain_fwd(v, q0, q1);
-    const T isd = obs_inv_sd[o];
-    const T e0 = (q0 - obs_uv[2 * o]) * isd;
-    const T e1 = (q1 - obs_uv[2 * o + 1]) * isd;
-    T rho, drho;
-    loss_eval<T, LOSS>((e0 * e0 + e1 * e1) / a2, rho, drho);
-    acc += T(0.5) * a2 * rho;
+                      const T* __restrict__ obs_inv_sd, int ni, int np,
+                      int pts, int tile_rows, T a2, T* partials,
+                      unsigned* ticket, T* out) {
+  extern __shared__ __align__(16) unsigned char cost_smem[];
+  using V2 = typename Vec2<T>::type;
+  T* tab = reinterpret_cast<T*>(cost_smem);  // [tile_rows][kInstCols]
+  T* pts_s = tab + kInstCols * tile_rows;    // [pts][3]
+  __shared__ T warp_sums[32];
+  const int t = threadIdx.x;
+  const int p0 = blockIdx.x * pts;
+  const int n_pts = min(pts, np - p0);
+  const T k1 = cam[0], k2 = cam[1], f = cam[2];
+  T x_own[3];  // this thread's point of the block (t < n_pts)
+  if (t < n_pts) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) x_own[k] = points[3LL * (p0 + t) + k];
   }
-  const T total = block_sum(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+  T acc = T(0);
+  for (int lo = 0; lo < ni; lo += tile_rows) {
+    const int rows = min(tile_rows, ni - lo);
+    const int n_cells = n_pts * rows;
+    const int n_batches = max(1, (n_cells + kCostDenseBatch * kCostBlock - 1) /
+                                     (kCostDenseBatch * kCostBlock));
+    // Cell c = pl * rows + al is slot (p0 + pl) * ni + lo + al.
+    const int step_p = kCostBlock / rows, step_a = kCostBlock % rows;
+    int pl = t / rows, al = t - (t / rows) * rows;
+    for (int bt = 0; bt < n_batches; ++bt) {
+      V2 uv[kCostDenseBatch];
+      T isd[kCostDenseBatch];
+      int cp[kCostDenseBatch], ca[kCostDenseBatch];
+      bool act[kCostDenseBatch];
+#pragma unroll
+      for (int u = 0; u < kCostDenseBatch; ++u) {
+        act[u] = (bt * kCostDenseBatch + u) * kCostBlock + t < n_cells;
+        cp[u] = pl;
+        ca[u] = al;
+        if (act[u]) {
+          const long long o = (long long)(p0 + pl) * ni + lo + al;
+          uv[u] = *reinterpret_cast<const V2*>(obs_uv + 2 * o);
+          isd[u] = obs_inv_sd[o];
+        }
+        pl += step_p;
+        al += step_a;
+        if (al >= rows) {
+          al -= rows;
+          ++pl;
+        }
+      }
+      if (bt == 0) {
+        if (lo > 0) __syncthreads();  // the last tile's readers are done
+        fill_inst_table(inst, lo, rows, tab);
+        if (lo == 0 && t < n_pts) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) pts_s[3 * t + k] = x_own[k];
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int u = 0; u < kCostDenseBatch; ++u) {
+        if (act[u]) {
+          const T* row = tab + kInstCols * ca[u];
+          const T* x = pts_s + 3 * cp[u];
+          T v[12], q0, q1;
+#pragma unroll
+          for (int k = 0; k < 6; ++k) v[k] = row[k];
+          v[6] = k1;
+          v[7] = k2;
+          v[8] = f;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) v[9 + k] = x[k];
+          chain_fwd(v, row[6], row[7], row[8], q0, q1);
+          const T e0 = (q0 - uv[u].x) * isd[u];
+          const T e1 = (q1 - uv[u].y) * isd[u];
+          T rho, drho;
+          loss_eval<T, LOSS>((e0 * e0 + e1 * e1) / a2, rho, drho);
+          acc += T(0.5) * a2 * rho;
+        }
+      }
+    }
+  }
+  grid_sum_last_block(block_sum_warps(acc, warp_sums), partials, ticket, out);
 }
 
 inline int threads_for(int ni) { return (ni + 31) / 32 * 32; }
@@ -1161,14 +1186,28 @@ int back_substitute(const T* inst, const T* cam, const T* points,
 
 template <typename T>
 int cost_dense(const T* inst, const T* cam, const T* points, const T* obs_uv,
-               const T* obs_inv_sd, int ni, long long n_slots, int loss,
-               double loss_threshold, int n_blocks, T* partials, T* out,
-               void* stream) {
+               const T* obs_inv_sd, int ni, int np, int loss,
+               double loss_threshold, int n_blocks, int pts, int tile_rows,
+               T* partials, unsigned* ticket, T* out, void* stream) {
+  const size_t table = sizeof(T) * kInstCols * (size_t)tile_rows;
+  const size_t smem = table + sizeof(T) * 3 * (size_t)pts;
+  if (tile_rows < 1 || table > kInstTableBytes || pts < 1 ||
+      pts > kCostBlock || (long long)n_blocks * pts < np) {
+    return -2;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T a2 = T(loss_threshold) * T(loss_threshold);
+  // Past 48 KB of dynamic shared memory a kernel must opt in.
 #define OSFM_COST_DENSE(L)                                                  \
-  cost_dense_kernel<T, L><<<n_blocks, kCostBlock, 0, s>>>(                 \
-      inst, cam, points, obs_uv, obs_inv_sd, ni, n_slots, a2, partials)
+  if (smem > 48 * 1024) {                                                   \
+    const cudaError_t e = cudaFuncSetAttribute(                             \
+        cost_dense_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+        (int)smem);                                                         \
+    if (e != cudaSuccess) return (int)e;                                    \
+  }                                                                         \
+  cost_dense_kernel<T, L><<<n_blocks, kCostBlock, smem, s>>>(               \
+      inst, cam, points, obs_uv, obs_inv_sd, ni, np, pts, tile_rows, a2,    \
+      partials, ticket, out)
   switch (loss) {
     case 0: OSFM_COST_DENSE(0); break;
     case 1: OSFM_COST_DENSE(1); break;
@@ -1178,8 +1217,6 @@ int cost_dense(const T* inst, const T* cam, const T* points, const T* obs_uv,
     default: return -1;
   }
 #undef OSFM_COST_DENSE
-  OSFM_CHECK();
-  cost_final_kernel<T><<<1, kCostBlock, 0, s>>>(partials, n_blocks, out);
   OSFM_CHECK();
   return 0;
 }
@@ -1215,14 +1252,14 @@ extern "C" {
                               dx_i, dx_cam, ni, np, chunk, n_chunks, loss,    \
                               loss_threshold, dx_p, stream);                   \
   }                                                                            \
-  int ba_cost_dense_##SUFFIX(const T* inst, const T* cam, const T* points,    \
-                             const T* obs_uv, const T* obs_inv_sd, int ni,    \
-                             long long n_slots, int loss,                     \
-                             double loss_threshold, int n_blocks,             \
-                             T* partials, T* out, void* stream) {             \
-    return cost_dense<T>(inst, cam, points, obs_uv, obs_inv_sd, ni, n_slots,  \
-                         loss, loss_threshold, n_blocks, partials, out,       \
-                         stream);                                              \
+  int ba_cost_dense_##SUFFIX(                                                \
+      const T* inst, const T* cam, const T* points, const T* obs_uv,          \
+      const T* obs_inv_sd, int ni, int np, int loss, double loss_threshold,   \
+      int n_blocks, int pts, int tile_rows, T* partials, unsigned* ticket,    \
+      T* out, void* stream) {                                                  \
+    return cost_dense<T>(inst, cam, points, obs_uv, obs_inv_sd, ni, np, loss, \
+                         loss_threshold, n_blocks, pts, tile_rows, partials,  \
+                         ticket, out, stream);                                 \
   }
 
 OSFM_DENSE_API(f32, float)

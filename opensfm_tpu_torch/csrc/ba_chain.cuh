@@ -1,9 +1,10 @@
 // Device code shared by the bundle-adjustment kernels (ba_resjac.cu,
-// ba_assemble.cu): the robust losses, the Rodrigues coefficients, the
-// per-observation projection chain and its closed-form Jacobian, the
-// deterministic block sums of the cost kernels, and the one-pass cost's
-// helpers (the chain from given rotation coefficients, the block's rotation
-// table, a shuffle block sum and the last-block grid sum).
+// ba_assemble.cu, assembly_variants.cu): the robust losses, the Rodrigues
+// coefficients, the per-observation projection chain and its closed-form
+// Jacobian, the one-pass cost helpers of fused_cost and fused_cost_dense
+// (the chain from given rotation coefficients, the block's rotation table,
+// a shuffle block sum and the last-block grid sum), and the asynchronous
+// copies (cp.async) of the staged kernels.
 //
 // Per observation the chain is
 //   X  = R(w_i) x_p + t_i                      (Rodrigues, small-angle series)
@@ -198,37 +199,13 @@ struct Vec2<float> {
   using type = float2;
 };
 
+// Threads of a cost block (fused_cost, fused_cost_dense) and the blocks of
+// it kept resident on an SM (registers and the instance table allow two).
 constexpr int kCostBlock = 256;
-
-// Sum over the kCostBlock threads of a block by a fixed shared-memory tree:
-// the same inputs give the same bits on every run.
-template <typename T>
-__device__ __forceinline__ T block_sum(T acc) {
-  __shared__ T sh[kCostBlock];
-  sh[threadIdx.x] = acc;
-  __syncthreads();
-#pragma unroll
-  for (int s = kCostBlock / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
-    __syncthreads();
-  }
-  return sh[0];
-}
-
-// Second pass of a cost: one block sums the first pass's block partials.
-template <typename T>
-__global__ void __launch_bounds__(kCostBlock)
-    cost_final_kernel(const T* __restrict__ partials, int n_partials,
-                      T* __restrict__ out) {
-  T acc = T(0);
-  for (int i = threadIdx.x; i < n_partials; i += kCostBlock) acc += partials[i];
-  const T total = block_sum(acc);
-  if (threadIdx.x == 0) out[0] = total;
-}
+constexpr int kCostMinBlocks = 2;
 
 // ---------------------------------------------------------------------------
-// One-pass cost helpers (fused_cost; written so that fused_cost_dense can
-// take them over).
+// One-pass cost helpers (fused_cost, fused_cost_dense).
 // ---------------------------------------------------------------------------
 
 // A cost block's instance table in shared memory: a row is (w0, w1, w2,
@@ -327,6 +304,55 @@ __device__ __forceinline__ void grid_sum_last_block(T block_total,
   if (threadIdx.x == 0) {
     out[0] = total;
     *ticket = 0u;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous global -> shared copies (cp.async), one set for every staged
+// kernel.  Each asm names memory as clobbered: the compiler sees no store to
+// the staged shared memory otherwise, and could treat a read of it as a read
+// of memory never written, or move it above the wait (a register-capped
+// variant of the back-substitution read wrong values without the clobber).
+// ---------------------------------------------------------------------------
+
+// A 16-byte copy that reads src_bytes (0..16) of gmem and zero-fills the
+// rest (0: the whole piece is zero, gmem is not read); both addresses
+// 16-byte aligned.  .cg: cached in L2, not in L1.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+// An N-byte (4, 8 or 16) copy, both addresses N-byte aligned.
+template <int N>
+__device__ __forceinline__ void cp_async_n(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+               "l"(gmem), "n"(N)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// cp_async_wait<min(n, 7)>: at most 7 pending, which completes every group
+// but the last 7.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n < 7 ? n : 7) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
   }
 }
 

@@ -239,8 +239,7 @@ __device__ __forceinline__ T cost_term(const T* __restrict__ cam,
   return T(0.5) * a2 * rho;
 }
 
-constexpr int kCostBatch = 4;      // observations a thread has in flight
-constexpr int kCostMinBlocks = 2;  // resident cost blocks per SM (registers)
+constexpr int kCostBatch = 4;  // observations a thread has in flight
 
 // fused_cost in one launch.  Block b sums the span of per_thread *
 // kCostBlock observations from b * per_thread * kCostBlock, thread t those

@@ -22,12 +22,14 @@ chain only (rows 0-1, the rest zero, s_ii zero).  Float32, as the TPU
 script runs it.
 
 The CUDA source (`csrc/assembly_variants.cu`) says what bounds each mode and
-how the product is split.  The wrapper runs the plain PyTorch version when
-its tensors lie on the CPU and launches the kernel when they lie on a CUDA
-device; it never falls back from one to the other.
-`assembly_variant.launches` counts the calls that launched the kernels (one
-call launches the slot pass and, for the modes with the product, the split
-product and its fixed-order sum).
+how the product is split (`product_plan`: 128 x 128 register-tiled FP32
+tiles, split over K to fill the card about twice).  The wrapper runs the
+plain PyTorch version when its tensors lie on the CPU and launches the
+kernel when they lie on a CUDA device; it never falls back from one to the
+other.  `assembly_variant.launches` counts the calls that launched the
+kernels (one call launches the slot pass and, for the modes with the
+product, the split product and its fixed-order sum; `assembly_product`, the
+product step alone on given operands, counts there too).
 """
 
 from __future__ import annotations
@@ -48,8 +50,9 @@ SOURCE = "assembly_variants.cu"
 MODES = ("full", "nopush", "nomatmul", "noout", "fwdonly")
 OUT_ROWS = 32  # out_obs rows
 SMS = 132  # streaming multiprocessors of an H100 SXM
-PRODUCT_TILE = 64  # kTile
-PRODUCT_TILE_K = 16  # kTileK
+PRODUCT_TILE = 128  # kPTile: the product's output tile
+PRODUCT_TILE_K = 16  # kPTileK: k rows per stage
+PRODUCT_BLOCKS_PER_SM = 2  # kPMinBlocks: the plan fills the card this often
 
 
 def rows_written(mode: str) -> int:
@@ -70,21 +73,34 @@ def _vals(points, inst_t, cam_row):
             + tuple(points[:, k][:, None] for k in range(3)))
 
 
+def _chain_rows(mode: str, u, points, inst_t, cam_row):
+    """(p0, p1, J0, J1) of every slot as [NP, NI] tensors: the prediction
+    and the 12 derivatives of each coordinate, or `nopush`'s (and
+    `fwdonly`'s) stand-ins p (0.1 + j)."""
+    vals = _vals(points, inst_t, cam_row)
+    if mode in ("fwdonly", "nopush"):
+        p0, p1 = chain_fwd(vals)
+        return (p0, p1, [p0 * (0.1 + j) for j in range(12)],
+                [p1 * (0.1 + j) for j in range(12)])
+    zero = torch.zeros_like(u)
+    (p0, p1), J0, J1 = chain_fwd_jac(vals)
+    # The constant columns as [NP, NI].
+    return p0, p1, [j + zero for j in J0], [j + zero for j in J1]
+
+
+def _operand(J, k: int) -> torch.Tensor:
+    """The product operand's rows (p, k) of one coordinate's Jacobian:
+    [NP, 6 NI], column x NI + a = J[x] J[9 + k]."""
+    return torch.cat([J[x] * J[9 + k] for x in range(6)], dim=1)
+
+
 def assembly_variant_plain(mode: str, u, v, isd, points, inst_t, cam_row
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of `assembly_variant`: (out_obs, s_ii)."""
     _check_mode(mode)
     n_p, ni = u.shape
-    vals = _vals(points, inst_t, cam_row)
+    p0, p1, J0, J1 = _chain_rows(mode, u, points, inst_t, cam_row)
     zero = torch.zeros_like(u)
-    if mode in ("fwdonly", "nopush"):
-        p0, p1 = chain_fwd(vals)
-        J0 = [p0 * (0.1 + j) for j in range(12)]
-        J1 = [p1 * (0.1 + j) for j in range(12)]
-    else:
-        (p0, p1), J0, J1 = chain_fwd_jac(vals)
-        J0 = [j + zero for j in J0]  # the constant columns as [NP, NI]
-        J1 = [j + zero for j in J1]
     rows = [(p0 - u) * isd, (p1 - v) * isd]
     if mode in ("fwdonly", "noout"):
         rows += [zero] * (OUT_ROWS - 2)
@@ -94,10 +110,22 @@ def assembly_variant_plain(mode: str, u, v, isd, points, inst_t, cam_row
     s_ii = torch.zeros((6 * ni, 6 * ni), dtype=u.dtype, device=u.device)
     if has_product(mode):
         for k in range(3):
-            a = torch.cat([J0[x] * J0[9 + k] for x in range(6)], dim=1)
-            g = torch.cat([J1[x] * J1[9 + k] for x in range(6)], dim=1)
-            s_ii = s_ii + a.T @ g
+            s_ii = s_ii + _operand(J0, k).T @ _operand(J1, k)
     return out_obs, s_ii
+
+
+def operands_plain(mode: str, u, v, isd, points, inst_t, cam_row
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The product's operands (A, G) [3 NP, 6 NI] of a mode with the
+    product, as the slot pass lays them out (row 3 p + k, column x NI + a):
+    s_ii = A^T G."""
+    _check_mode(mode)
+    if not has_product(mode):
+        raise ValueError(f"mode {mode!r} has no product")
+    n_p, ni = u.shape
+    _, _, J0, J1 = _chain_rows(mode, u, points, inst_t, cam_row)
+    return tuple(torch.stack([_operand(J, k) for k in range(3)], dim=1)
+                 .reshape(3 * n_p, 6 * ni) for J in (J0, J1))
 
 
 _P = ctypes.c_void_p
@@ -107,8 +135,11 @@ _LL = ctypes.c_longlong
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.assembly_variant_f32
-    fn.argtypes = [_I] + [_P] * 6 + [_I, _I] + [_P] * 3 + [_I, _LL, _P, _P,
-                                                           _P]
+    fn.argtypes = ([_I] + [_P] * 6 + [_I, _I, _I] + [_P] * 3
+                   + [_I, _LL, _P, _P, _P])
+    fn.restype = _I
+    fn = lib.assembly_product_f32
+    fn.argtypes = [_P, _P, _LL, _I, _I, _I, _LL, _P, _P, _P]
     fn.restype = _I
 
 
@@ -121,16 +152,72 @@ def _check_mode(mode: str) -> None:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
 
 
+def operand_ld(ni: int) -> int:
+    """Row stride of the product's operands and partials: 6 NI rounded up to
+    a multiple of 4 floats, so that every row starts on 16 bytes."""
+    return -(-6 * ni // 4) * 4
+
+
 def product_plan(ni: int, n_p: int) -> Tuple[int, int]:
     """(splits, depth of a split) of the K = 3 NP product: enough splits
-    that the 64 x 64 output tiles times the splits give ~2 blocks on each
-    SM, each split a whole number of 16-deep stages.  A function of the
-    shapes alone, so the summation order is the same on every call."""
+    that the 128 x 128 output tiles times the splits fill the SMs about
+    PRODUCT_BLOCKS_PER_SM times (one wave: at 64 x 8,192, 9 tiles x 29
+    splits = 261 blocks), each split a whole number of PRODUCT_TILE_K-deep
+    stages and at least ~512 rows deep.  A function of the shapes alone, so
+    the summation order is the same on every call."""
     tiles = -(-6 * ni // PRODUCT_TILE)
     k = max(3 * n_p, 1)
-    n_split = max(1, min(2 * SMS // (tiles * tiles), k // 512))
+    n_split = max(1, min(PRODUCT_BLOCKS_PER_SM * SMS // (tiles * tiles),
+                         k // 512))
     k_split = -(-(-(-k // n_split)) // PRODUCT_TILE_K) * PRODUCT_TILE_K
     return -(-k // k_split), k_split
+
+
+def product_tiles(n: int):
+    """[(tile row, tile column)] of the product's blocks in blockIdx.x
+    order: the 128 x 128 tiles of the n x n output, row-major (the last row
+    and column of tiles ragged when n is not a multiple of 128)."""
+    t = -(-n // PRODUCT_TILE)
+    return [(b // t, b % t) for b in range(t * t)]
+
+
+def _check_cuda(*tensors) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError("all tensors must be on one CUDA device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the kernel takes float32, not {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the kernel takes contiguous tensors")
+
+
+def assembly_product(op_a, op_g):
+    """op_a^T op_g [n, n] of float32 operands [K, n] on a CUDA device: the
+    ablation kernel's product step alone (split product and fixed-order
+    sum, `product_plan`), for timing it beside a library product on the
+    same operands.  n must be 6 NI for some NI (the plan's shapes) and a
+    multiple of 4 (rows on 16 bytes)."""
+    if op_a.device.type != "cuda":
+        raise ValueError(f"the product step runs on CUDA, not {op_a.device}")
+    _check_cuda(op_a, op_g)
+    K, n = op_a.shape
+    if op_g.shape != op_a.shape or n % 12 or K == 0 \
+            or op_a.data_ptr() % 16 or op_g.data_ptr() % 16:
+        raise ValueError("the product step takes two [K, 6 NI] operands, "
+                         "NI even, 16-byte aligned")
+    n_split, k_split = product_plan(n // 6, -(-K // 3))
+    new = dict(dtype=torch.float32, device=op_a.device)
+    part = torch.empty((n_split, n, n), **new)
+    s_ii = torch.empty((n, n), **new)
+    with torch.cuda.device(op_a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().assembly_product_f32(
+            op_a.data_ptr(), op_g.data_ptr(), K, n, n, n_split, k_split,
+            part.data_ptr(), s_ii.data_ptr(), stream)
+    _raise_on(err, "assembly_product")
+    assembly_variant.launches += 1
+    return s_ii
 
 
 def assembly_variant(mode: str, u, v, isd, points, inst_t, cam_row
@@ -150,22 +237,17 @@ def assembly_variant(mode: str, u, v, isd, points, inst_t, cam_row
                                       cam_row)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
-    for t in (u, v, isd, points, inst_t, cam_row):
-        if t.device != u.device:
-            raise ValueError("all tensors must be on one CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the kernel takes float32, not {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("the kernel takes contiguous tensors")
+    _check_cuda(u, v, isd, points, inst_t, cam_row)
     n_p, ni = u.shape
     new = dict(dtype=torch.float32, device=u.device)
     out_obs = torch.empty((OUT_ROWS, n_p, ni), **new)
     s_ii = torch.empty((6 * ni, 6 * ni), **new)
     n_split, k_split = product_plan(ni, n_p)
+    ld = operand_ld(ni)
     if has_product(mode):
-        op_a = torch.empty((3 * n_p, 6 * ni), **new)
-        op_g = torch.empty((3 * n_p, 6 * ni), **new)
-        part = torch.empty((n_split, 6 * ni, 6 * ni), **new)
+        op_a = torch.empty((3 * n_p, ld), **new)
+        op_g = torch.empty((3 * n_p, ld), **new)
+        part = torch.empty((n_split, 6 * ni, ld), **new)
         scratch = (op_a.data_ptr(), op_g.data_ptr(), part.data_ptr())
     else:
         scratch = (None, None, None)
@@ -174,7 +256,7 @@ def assembly_variant(mode: str, u, v, isd, points, inst_t, cam_row
         err = _lib().assembly_variant_f32(
             MODES.index(mode), u.data_ptr(), v.data_ptr(), isd.data_ptr(),
             points.data_ptr(), inst_t.data_ptr(), cam_row.data_ptr(), n_p, ni,
-            out_obs.data_ptr(), scratch[0], scratch[1], n_split, k_split,
+            ld, out_obs.data_ptr(), scratch[0], scratch[1], n_split, k_split,
             scratch[2], s_ii.data_ptr(), stream)
     _raise_on(err, "assembly_variant")
     assembly_variant.launches += 1

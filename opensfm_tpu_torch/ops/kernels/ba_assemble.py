@@ -22,11 +22,15 @@ identity rig):
   (`backsub_plan`), one thread per slot with its rotation and update
   computed once, the Jacobian contracted as it forms.
 - `fused_cost_dense` (Pallas `_make_cost_kernel_dense`): the total robust
-  cost over the grid, the slot number giving the indices.
+  cost over the grid, the slot number giving the indices: one launch, a
+  block per run of whole grid rows (`cost_dense_plan`) with the instances'
+  rotation table in shared memory (tiles past `cost_table_rows`), and the
+  last block adding the block sums in block order.
 
 The CUDA source (`csrc/ba_assemble.cu`) says what bounds each kernel and how
-it is split into passes; every sum is taken in a fixed order (no atomics), so
-the same inputs give the same bits on every run.
+it is split into passes; every sum is taken in a fixed order (the cost's one
+atomic only elects the block that adds the block sums), so the same inputs
+give the same bits on every run.
 
 Each wrapper runs the plain PyTorch version when its tensors lie on the CPU
 and launches the CUDA kernels when they lie on a CUDA device; it never falls
@@ -34,8 +38,10 @@ back from one to the other.  `<wrapper>.launches` counts the wrapper's calls
 that launched its kernels: one call of `fused_schur_assembly` launches four
 or five CUDA kernels (assembly, a one- or two-level chunk sum, product,
 product sum; the f64 product on the f64 tensor cores), one of
-`fused_cost_dense` two (partials, final sum), one of `fused_back_substitute`
-one (`KERNELS_PER_CALL`).
+`fused_cost_dense` or `fused_back_substitute` one (`KERNELS_PER_CALL`).
+`fused_cost_dense` shares the device's ticket counter with `fused_cost`
+(`ba_resjac._ticket`): two cost calls on one device must not run at once on
+two streams (the LM loop runs them on its one stream, one after another).
 """
 
 from __future__ import annotations
@@ -46,20 +52,23 @@ import torch
 
 from opensfm_tpu_torch.ops.kernels import _build
 from opensfm_tpu_torch.ops.kernels.ba_resjac import (
+    COST_BLOCK,
+    COST_BLOCKS_PER_SM,
     LOSS_IDS,
     SMS,
     _loss,
     _raise_on,
+    _ticket,
     chain_fwd,
     chain_fwd_jac,
-    cost_blocks,
+    cost_table_rows,
 )
 
 SOURCE = "ba_assemble.cu"
 PT_COLS = 16  # out_pt columns (kPt)
 AUX_ROWS = 96  # aux rows (kAuxRows)
 MAX_NI = 256  # one thread per instance slot (kMaxThreads)
-KERNELS_PER_CALL = {"fused_back_substitute": 1}
+KERNELS_PER_CALL = {"fused_back_substitute": 1, "fused_cost_dense": 1}
 BACKSUB_WARPS_PER_SM = 32  # the back-substitution plan's warps per SM
 BACKSUB_SMEM = 48 * 1024  # its cap on a block's shared memory
 BACKSUB_PT_STAGE = 12  # kPtStage: values staged per point (x, Hinv, bp)
@@ -259,7 +268,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.argtypes = [_P] * 8 + [_I, _I, _I, _I, _I, _D, _P, _P]
         fn.restype = _I
         fn = getattr(lib, f"ba_cost_dense_{s}")
-        fn.argtypes = [_P] * 5 + [_I, _LL, _I, _D, _I, _P, _P, _P]
+        fn.argtypes = [_P] * 5 + [_I, _I, _I, _D, _I, _I, _I, _P, _P, _P, _P]
         fn.restype = _I
 
 
@@ -268,8 +277,9 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check_cuda(inst, cam, points, obs_uv, obs_inv_sd, loss, *more):
-    """Validates what the kernels take (`more`: further floating tensors);
-    returns (dtype suffix, loss id)."""
+    """Validates what the kernels take (`more`: further floating tensors;
+    obs_uv on a row boundary, read as one vector a row); returns (dtype
+    suffix, loss id)."""
     floats = (inst, cam, points, obs_uv, obs_inv_sd) + more
     dev = obs_uv.device
     dtype = obs_uv.dtype
@@ -290,6 +300,9 @@ def _check_cuda(inst, cam, points, obs_uv, obs_inv_sd, loss, *more):
         raise ValueError("bad shapes for the dense-layout kernels")
     if loss not in LOSS_IDS:
         raise ValueError(f"unknown loss {loss!r}")
+    if obs_uv.data_ptr() % (2 * obs_uv.element_size()):
+        raise ValueError("the kernels read each obs_uv row as one aligned "
+                         "vector: obs_uv must start on a row boundary")
     return ("f32" if dtype == torch.float32 else "f64"), LOSS_IDS[loss]
 
 
@@ -420,9 +433,6 @@ def fused_back_substitute(inst, cam, points, obs_uv, obs_inv_sd, out_pt, dx_i,
     if out_pt.shape != (n_p, PT_COLS) or dx_i.shape != (ni, 6) \
             or dx_cam.dim() != 2 or dx_cam.shape[1] < 3:
         raise ValueError("bad shapes for fused_back_substitute")
-    if obs_uv.data_ptr() % (2 * obs_uv.element_size()):
-        raise ValueError("the kernel reads each obs_uv row as one aligned "
-                         "vector: obs_uv must start on a row boundary")
     dx_p = torch.empty((n_p, 3), dtype=obs_uv.dtype, device=obs_uv.device)
     if n_p == 0:
         return dx_p
@@ -453,30 +463,56 @@ def _launch_back_substitute(args, suffix, loss_id, loss_threshold, chunk,
 fused_back_substitute.launches = 0
 
 
+def cost_dense_plan(ni: int, n_p: int, itemsize: int):
+    """(blocks, points per block, table rows) of `fused_cost_dense`: block b
+    sums the grid rows of points [b * pts, min((b + 1) * pts, NP)), about
+    COST_BLOCKS_PER_SM blocks on each SM (one wave) and at most COST_BLOCK
+    points a block (their coordinates are staged, one point a thread); the
+    instances go in tiles of `cost_table_rows` (all NI when their rows fit
+    the table's cap).  A function of the shapes alone, so the sum's order,
+    and its bits, are the same on every call."""
+    pts = min(COST_BLOCK, max(1, -(-n_p // (SMS * COST_BLOCKS_PER_SM))))
+    return max(1, -(-n_p // pts)), pts, cost_table_rows(ni, itemsize)
+
+
 def fused_cost_dense(inst, cam, points, obs_uv, obs_inv_sd, loss: str,
                      loss_threshold: float):
     """Total robust reprojection cost (a 0-d tensor) over the dense grid:
-    observation p * NI + a is point p seen by instance a."""
+    observation p * NI + a is point p seen by instance a.  Any NI.  An empty
+    grid costs 0."""
     if obs_uv.device.type == "cpu":
         return fused_cost_dense_plain(inst, cam, points, obs_uv, obs_inv_sd,
                                       loss, loss_threshold)
     if obs_uv.device.type != "cuda":
         raise ValueError(f"unsupported device {obs_uv.device}")
-    suffix, loss_id = _check_cuda(inst, cam, points, obs_uv, obs_inv_sd, loss)
-    n = obs_uv.shape[0]
+    args = (inst, cam, points, obs_uv, obs_inv_sd)
+    suffix, loss_id = _check_cuda(*args, loss)
+    if obs_uv.shape[0] == 0:
+        return torch.zeros((), dtype=obs_uv.dtype, device=obs_uv.device)
+    plan = cost_dense_plan(inst.shape[0], points.shape[0],
+                           obs_uv.element_size())
+    return _launch_cost_dense(args, suffix, loss_id, loss_threshold, plan)
+
+
+def _launch_cost_dense(args, suffix, loss_id, loss_threshold, plan):
+    """Launches the dense cost kernel on the checked `args` (the five
+    tensors of `fused_cost_dense`, NP x NI > 0) with `plan` = (blocks,
+    points per block, table rows), counts the launch in
+    `fused_cost_dense.launches` and returns the 0-d result.
+    `fused_cost_dense` passes cost_dense_plan's; other plans serve the
+    card's checks and sweeps."""
+    inst, points, obs_uv = args[0], args[2], args[3]
     new = dict(dtype=obs_uv.dtype, device=obs_uv.device)
-    if n == 0:
-        return torch.zeros((), **new)
-    n_blocks = cost_blocks(n)
+    n_blocks, pts, tile_rows = plan
     partials = torch.empty((n_blocks,), **new)
     out = torch.empty((), **new)
     fn = getattr(_lib(), f"ba_cost_dense_{suffix}")
     with torch.cuda.device(obs_uv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(inst.data_ptr(), cam.data_ptr(), points.data_ptr(),
-                 obs_uv.data_ptr(), obs_inv_sd.data_ptr(), inst.shape[0], n,
-                 loss_id, float(loss_threshold), n_blocks, partials.data_ptr(),
-                 out.data_ptr(), stream)
+        err = fn(*(t.data_ptr() for t in args), inst.shape[0],
+                 points.shape[0], loss_id, float(loss_threshold), n_blocks,
+                 pts, tile_rows, partials.data_ptr(),
+                 _ticket(obs_uv.device).data_ptr(), out.data_ptr(), stream)
     _raise_on(err, "fused_cost_dense")
     fused_cost_dense.launches += 1
     return out

@@ -26,8 +26,9 @@ Each wrapper runs the plain PyTorch version when its tensors lie on the CPU
 and launches the CUDA kernel when they lie on a CUDA device; it never falls
 back from one to the other.  `<wrapper>.launches` counts the wrapper's calls
 that launched its kernels: one call of either launches one CUDA kernel
-(`KERNELS_PER_CALL`).  Two `fused_cost` calls on one device must not run at
-once on two streams: they share the device's ticket counter.
+(`KERNELS_PER_CALL`).  Two cost calls on one device (`fused_cost`, and
+`fused_cost_dense` of `ba_assemble`) must not run at once on two streams:
+they share the device's ticket counter.
 """
 
 from __future__ import annotations
@@ -45,11 +46,10 @@ LOSS_IDS = {
     "TukeyLoss": 4,
 }
 COST_BLOCK = 256  # threads per block of the cost kernels (kCostBlock)
-COST_MAX_BLOCKS = 1056  # fused_cost_dense: 8 blocks on each of 132 SMs
 SMS = 132  # streaming multiprocessors of an H100 SXM
-COST_BLOCKS_PER_SM = 2  # fused_cost: resident blocks per SM (kCostMinBlocks)
+COST_BLOCKS_PER_SM = 2  # resident cost blocks per SM (kCostMinBlocks)
 COST_BATCH = 4  # fused_cost: observations in flight per thread (kCostBatch)
-INST_COLS = 9  # fused_cost: values of an instance table row (kInstCols)
+INST_COLS = 9  # values of a cost block's instance table row (kInstCols)
 INST_TABLE_BYTES = 96 * 1024  # its cap on a block's table (kInstTableBytes)
 KERNELS_PER_CALL = {"fused_residual_jacobian": 1, "fused_cost": 1}
 
@@ -326,12 +326,6 @@ def fused_residual_jacobian(inst, cam, points, obs_inst, obs_cam, obs_point,
 fused_residual_jacobian.launches = 0
 
 
-def cost_blocks(n_obs: int) -> int:
-    """Blocks of `fused_cost_dense`'s first pass: a function of O alone, so
-    the reduction order, and the sum, are the same on every call."""
-    return max(1, min(-(-n_obs // COST_BLOCK), COST_MAX_BLOCKS))
-
-
 def cost_plan(n_obs: int):
     """(blocks, observations per thread) of `fused_cost`: block b sums
     observations [b * span, (b + 1) * span), span = per_thread * COST_BLOCK,
@@ -360,7 +354,8 @@ def _ticket(device: torch.device) -> torch.Tensor:
 
 
 def cost_table_rows(n_inst: int, itemsize: int) -> int:
-    """Instances in a `fused_cost` block's table (a tile): all n_inst when
+    """Instances in a cost block's table (a tile; `fused_cost` and
+    `fused_cost_dense`): all n_inst when
     their rows fit INST_TABLE_BYTES (1,365 in f64, 2,730 in f32), else as
     many as fit, the kernel then walking the instances in tiles of that
     many.  A function of the shapes alone."""

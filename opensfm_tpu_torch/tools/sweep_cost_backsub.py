@@ -1,4 +1,5 @@
-"""Sweep the plans of `fused_cost` and `fused_back_substitute` on the card.
+"""Sweep the plans of `fused_cost`, `fused_cost_dense` and
+`fused_back_substitute` on the card.
 
     python -m opensfm_tpu_torch.tools.sweep_cost_backsub [--out FILE]
 
@@ -8,10 +9,15 @@ What each plan's choices buy, in f64 and f32 (SoftLOneLoss):
   O = 262,144): the plan's grid (`cost_plan`, 2 blocks per SM) beside 1, 3
   and 4 blocks per SM, and the instance table walked in tiles of 64 and 128
   instances beside one table of all 256;
+- `fused_cost_dense` on the dense 64 x 8,192 grid: the plan's grid
+  (`cost_dense_plan`, 2 blocks per SM) beside 1, 3 and 4 blocks per SM, and
+  the instance table walked in tiles of 16 and 32 instances beside one
+  table of all 64;
 - `fused_back_substitute` on the dense 64 x 8,192 grid: the plan's chunk
   (`backsub_plan`) beside the other chunks of 1 to 12 points that fit the
   block's shared memory;
-- the timer's floor (a one-element fill) and both kernels at three sizes,
+- the timer's floor (a one-element fill) and the three kernels at three
+  sizes (O = 2,048 to 262,144; the dense grids 64 x 128 to 64 x 8,192),
   each timed as `time_ms` times it (L2 flushed, one call) and back to back
   (warm, 20 calls).
 
@@ -124,6 +130,24 @@ def sweep_cost(args, dev):
         for label, (plan, rows) in cases.items()}
 
 
+def sweep_cost_dense(args, dev):
+    """{label: (plan, ms)} of the dense cost kernel; args are the five
+    tensors of `fused_cost_dense`."""
+    suffix, loss_id = A._check_cuda(*args, LOSS)
+    ni, n_p = args[0].shape[0], args[2].shape[0]
+    plan = A.cost_dense_plan(ni, n_p, args[3].element_size())
+
+    def plan_for(per_sm):
+        pts = min(K.COST_BLOCK, -(-n_p // (K.SMS * per_sm)))
+        return -(-n_p // pts), pts, plan[2]
+
+    cases = {"plan": plan}
+    cases.update({f"{n} blocks/SM": plan_for(n) for n in (1, 3, 4)})
+    cases.update({f"tiles of {r}": plan[:2] + (r,) for r in (16, 32)})
+    return {label: (p, time_ms(lambda p=p: A._launch_cost_dense(
+        args, suffix, loss_id, 1.0, p), dev)) for label, p in cases.items()}
+
+
 def sweep_backsub(args, dx_p, dev):
     """{chunk: ms} of the back-substitution."""
     suffix, loss_id = A._check_cuda(*args[:5], LOSS, *args[5:])
@@ -136,7 +160,8 @@ def sweep_backsub(args, dx_p, dev):
 
 def sizes(dtype, dev, cost_big, dense_big):
     """{kernel: [(size, time_ms us, back-to-back us)]} at three sizes."""
-    out = {"fused_cost": [], "fused_back_substitute": []}
+    out = {"fused_cost": [], "fused_back_substitute": [],
+           "fused_cost_dense": []}
     for n in (2048, 32768, cost_big[6].shape[0]):
         a = cost_big[:3] + tuple(t[:n].contiguous() for t in cost_big[3:])
 
@@ -154,13 +179,21 @@ def sizes(dtype, dev, cost_big, dense_big):
 
         out["fused_back_substitute"].append(
             (n_p, time_ms(fn, dev) * 1e3, back_to_back_us(fn)))
+
+        def dense_cost(args=args):
+            return A.fused_cost_dense(*args[:5], LOSS, 1.0)
+
+        out["fused_cost_dense"].append(
+            (n_p, time_ms(dense_cost, dev) * 1e3,
+             back_to_back_us(dense_cost)))
     return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(
-        description="Sweep fused_cost's grid and table tiles and "
-                    "fused_back_substitute's chunk on the card.")
+        description="Sweep fused_cost's and fused_cost_dense's grids and "
+                    "table tiles and fused_back_substitute's chunk on the "
+                    "card.")
     parser.add_argument("--out", default=None, help="also write JSON here")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -178,12 +211,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         key = str(dtype)[6:]
         cost_args = cost_inputs(bundle, dtype, dev)
         dense_args = backsub_inputs(dense, dtype, dev)
-        r = result[key] = dict(cost=sweep_cost(cost_args, dev),
-                               backsub=sweep_backsub(*dense_args, dev),
-                               sizes=sizes(dtype, dev, cost_args, dense_args))
+        r = result[key] = dict(
+            cost=sweep_cost(cost_args, dev),
+            cost_dense=sweep_cost_dense(dense_args[0][:5], dev),
+            backsub=sweep_backsub(*dense_args, dev),
+            sizes=sizes(dtype, dev, cost_args, dense_args))
         print(f"{key} fused_cost O={cost_args[6].shape[0]}: " + "; ".join(
             f"{k} {p} rows {t}: {ms:.4f} ms"
             for k, (p, t, ms) in r["cost"].items()), flush=True)
+        print(f"{key} fused_cost_dense 64 x 8192 (blocks, points a block, "
+              f"table rows): " + "; ".join(
+                  f"{k} {p}: {ms:.4f} ms"
+                  for k, (p, ms) in r["cost_dense"].items()), flush=True)
         print(f"{key} fused_back_substitute 64 x 8192 chunk (plan "
               f"{A.backsub_plan(64, 8192)}): " + "; ".join(
                   f"{c}: {ms:.4f} ms" for c, ms in r["backsub"].items()),

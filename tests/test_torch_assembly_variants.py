@@ -103,13 +103,70 @@ def test_plain_matches_the_script(inputs, mode):
     assert (np.abs(want_s).max() > 0) == V.has_product(mode)
 
 
+PRODUCT_SHAPES = [(64, 8192), (8, 256), (1, 1), (256, 16384), (33, 1000),
+                  (37, 1000)]
+
+
 def test_product_plan_covers_k():
-    for ni, n_p in [(64, 8192), (8, 256), (1, 1), (256, 16384), (33, 1000)]:
+    """The K splits partition 3 NP in order, each a whole number of stages;
+    at the profiler's 64 x 8,192 the nine 128 x 128 tiles times 29 splits
+    fill the 132 SMs about twice (261 blocks, one wave of two a SM)."""
+    for ni, n_p in PRODUCT_SHAPES:
         n_split, k_split = V.product_plan(ni, n_p)
         k = 3 * n_p
         assert k_split % V.PRODUCT_TILE_K == 0
         assert (n_split - 1) * k_split < k <= n_split * k_split
-    assert V.product_plan(64, 8192) == (7, 3520)
+        assert V.product_plan(ni, n_p) == (n_split, k_split)
+    assert V.product_plan(64, 8192) == (29, 848)
+    blocks = len(V.product_tiles(6 * 64)) * 29
+    assert V.SMS < blocks <= V.PRODUCT_BLOCKS_PER_SM * V.SMS
+
+
+@pytest.mark.parametrize("ni,n_p", PRODUCT_SHAPES)
+def test_product_tiles_and_pieces_cover_the_output(ni, n_p):
+    """The product's blocks (blockIdx.x row-major over the 128 x 128 tiles,
+    as csrc/assembly_variants.cu decodes it) cover every entry of the
+    6 NI x 6 NI output once; the operand rows (ld floats, a multiple of 4)
+    start on 16 bytes; a stage's 16-byte pieces, each reading
+    clamp(4 (n - c), 0, 16) bytes from column c, read exactly the columns
+    below n; the split sum's quads (four columns of an ld-wide partial
+    row) write every output entry once."""
+    n, ld = 6 * ni, V.operand_ld(ni)
+    assert ld % 4 == 0 and n <= ld < n + 4
+    t, tile = -(-n // V.PRODUCT_TILE), V.PRODUCT_TILE
+    cover = np.zeros((t * tile, t * tile), dtype=int)
+    for b, (r, c) in enumerate(V.product_tiles(n)):
+        assert (r, c) == (b // t, b % t)
+        cover[r * tile:(r + 1) * tile, c * tile:(c + 1) * tile] += 1
+    assert (cover[:n, :n] == 1).all()
+    for j0 in range(0, t * tile, tile):
+        read = np.zeros(t * tile, dtype=int)
+        for c in range(0, tile, 4):
+            nbytes = min(max(4 * (n - (j0 + c)), 0), 16)
+            read[j0 + c:j0 + c + nbytes // 4] += 1
+        assert (read[j0:j0 + tile] == (np.arange(j0, j0 + tile) < n)).all()
+    i, j = np.divmod(np.arange(n * (ld // 4)), ld // 4)
+    col = 4 * j[:, None] + np.arange(4)
+    keep = col < n
+    written = np.bincount((i[:, None] * n + col)[keep], minlength=n * n)
+    assert (written == 1).all() and written.size == n * n
+
+
+def test_operands_give_the_plain_product(inputs):
+    """The slot pass's operands as `operands_plain` lays them out ([3 NP,
+    6 NI], row 3 p + k) give the plain version's s_ii as one product
+    A^T G (float32, within TOL of its largest entry), for the three modes
+    with the product; the others have none."""
+    cpu = tuple(map(torch.from_numpy, inputs))
+    for mode in V.MODES:
+        if not V.has_product(mode):
+            with pytest.raises(ValueError, match="no product"):
+                V.operands_plain(mode, *cpu)
+            continue
+        a, g = V.operands_plain(mode, *cpu)
+        assert a.shape == g.shape == (3 * 256, 6 * 8)
+        assert _max_rel(a.T @ g, V.assembly_variant_plain(mode, *cpu)[1]) \
+            <= TOL
 
 
 def test_wrapper_raises_off_the_cpu_and_on_bad_input(inputs):
@@ -129,6 +186,8 @@ def test_wrapper_raises_off_the_cpu_and_on_bad_input(inputs):
     before = V.assembly_variant.launches
     V.assembly_variant("fwdonly", *cpu)
     assert V.assembly_variant.launches == before
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        V.assembly_product(cpu[0], cpu[1])
 
 
 def test_tool_prints_five_timings_on_the_cpu():

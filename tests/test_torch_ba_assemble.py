@@ -262,6 +262,22 @@ def test_cpu_tensors_never_launch():
     assert [k.launches for k in kernels] == before
 
 
+def test_wrapper_checks_reject_a_misaligned_uv():
+    """The dense kernels read each (u, v) row as one aligned vector: the
+    checks take obs_uv on a row boundary and refuse one that starts
+    mid-row."""
+    problem = _problem(8, 128, seed=6, loss="SoftLOneLoss")
+    f = lambda k: torch.as_tensor(getattr(problem, k), dtype=torch.float64)  # noqa: E731
+    args = (f("inst"), f("cam"), f("points"), f("obs_uv"), f("obs_inv_sd"))
+    assert port_k._check_cuda(*args, "SoftLOneLoss") == ("f64", 1)
+    flat = torch.cat([torch.zeros(1, dtype=torch.float64),
+                      args[3].reshape(-1)])
+    shifted = flat[1:].view(-1, 2)
+    assert shifted.is_contiguous()
+    with pytest.raises(ValueError, match="row boundary"):
+        port_k._check_cuda(*args[:3], shifted, args[4], "SoftLOneLoss")
+
+
 BACKSUB_SHAPES = [(1, 128), (37, 1000), (64, 8192), (256, 1280)]
 
 
@@ -381,3 +397,113 @@ def test_contracted_back_substitution_matches_twin_and_xla(loss):
     twin = port_k.fused_back_substitute_plain(*args, loss, 1.0)
     assert _max_rel(got, twin) < 1e-12
     assert _max_rel(got, want) < 1e-10
+
+
+COST_DENSE_SHAPES = [(37, 1000, 8), (256, 1280, 8), (1, 128, 8),
+                     (64, 8192, 8), (64, 8192, 4), (1500, 128, 8),
+                     (3000, 128, 4)]
+
+
+def _cost_dense_walk(ni, n_points, plan):
+    """The slots that csrc/ba_assemble.cu's cost_dense_kernel sums, in its
+    order: a list of [blocks, COST_BLOCK] arrays, the slot index (or -1
+    where the thread is idle) of each block's thread at each step.  Block b
+    owns points [b * pts, min((b + 1) * pts, NP)); per table tile
+    [lo, lo + rows) thread t walks the [points, rows] cells t, t + 256, ...,
+    carrying (point, instance) by the constant step (256 // rows,
+    256 % rows), four cells a batch, as the kernel does."""
+    n_blocks, pts, tile = plan
+    threads, batch = port_k.COST_BLOCK, 4
+    t = np.arange(threads)
+    p0 = np.arange(n_blocks) * pts
+    n_pts = np.minimum(pts, n_points - p0)
+    steps = []
+    for lo in range(0, ni, tile):
+        rows = min(tile, ni - lo)
+        n_cells = (n_pts * rows)[:, None]
+        n_batches = max(1, -(-int(n_cells.max()) // (batch * threads)))
+        step_p, step_a = divmod(threads, rows)
+        pl = np.tile(t // rows, (n_blocks, 1))
+        al = np.tile(t % rows, (n_blocks, 1))
+        for j in range(n_batches * batch):
+            act = j * threads + t[None, :] < n_cells
+            steps.append(np.where(act, (p0[:, None] + pl) * ni + lo + al, -1))
+            pl, al = pl + step_p, al + step_a
+            wrap = al >= rows
+            al, pl = np.where(wrap, al - rows, al), np.where(wrap, pl + 1, pl)
+    return steps
+
+
+@pytest.mark.parametrize("ni,n_points,itemsize", COST_DENSE_SHAPES)
+def test_cost_dense_plan_covers_every_slot_once(ni, n_points, itemsize):
+    """The dense cost's plan: every block owns at least one point, at most
+    COST_BLOCK (one staged point a thread); the table tiles cover every
+    instance once within the table's byte cap (two tiles past 1,365
+    instances in f64, 2,730 in f32); the kernel's walk with its carried
+    (point, instance) sums every slot of the [NP, NI] grid exactly once;
+    the plan is a function of the shapes alone."""
+    plan = port_k.cost_dense_plan(ni, n_points, itemsize)
+    n_blocks, pts, tile = plan
+    assert 1 <= pts <= port_k.COST_BLOCK
+    assert (n_blocks - 1) * pts < n_points <= n_blocks * pts
+    assert tile * 9 * itemsize <= 96 * 1024
+    tiles = [(lo, min(tile, ni - lo)) for lo in range(0, ni, tile)]
+    assert sum(rows for _, rows in tiles) == ni
+    assert len(tiles) == (2 if ni in (1500, 3000) else 1)
+    seen = np.bincount(np.concatenate([s.ravel() for s in
+                                       _cost_dense_walk(ni, n_points, plan)])
+                       + 1, minlength=ni * n_points + 1)
+    assert (seen[1:] == 1).all()
+    assert port_k.cost_dense_plan(ni, n_points, itemsize) == plan
+
+
+@pytest.mark.parametrize("tile", [None, 3])
+def test_cost_dense_walk_sums_to_the_plain_total(tile):
+    """The terms summed in cost_dense_kernel's order (each thread's walk in
+    order, a shuffle tree per warp, warps in order, then the last block's
+    sum of the block partials alike) give the plain version's total within
+    1e-12 in f64, with the instance table whole or in tiles of 3 rows, and
+    NaN when a NaN point's slots are all dead (dead slots are summed)."""
+    problem = _problem(8, 256, seed=9, loss="SoftLOneLoss")
+    ni, n_points = 8, 256
+    f = lambda k: torch.as_tensor(getattr(problem, k), dtype=torch.float64)  # noqa: E731
+    args = (f("inst"), f("cam"), f("points"), f("obs_uv"), f("obs_inv_sd"))
+    plan = port_k.cost_dense_plan(ni, n_points, 8)
+    if tile is not None:
+        plan = plan[:2] + (tile,)
+
+    def kernel_order_sum(args):
+        p0, p1 = port_k.chain_fwd(port_k._dense_vals(*args[:3]))
+        uv, isd = args[3].reshape(n_points, ni, 2), args[4].reshape(
+            n_points, ni)
+        e0, e1 = (p0 - uv[..., 0]) * isd, (p1 - uv[..., 1]) * isd
+        rho = port_k._loss("SoftLOneLoss")[0]
+        terms = np.append((0.5 * rho(e0 * e0 + e1 * e1)).numpy().ravel(), 0.0)
+
+        def block_sums(acc):
+            for o in (16, 8, 4, 2, 1):
+                w = acc.reshape(acc.shape[0], -1, 32)
+                w[:, :, :32 - o] = w[:, :, :32 - o] + w[:, :, o:]
+            total = acc[:, 0].copy()
+            for w in range(1, acc.shape[1] // 32):
+                total = total + acc[:, 32 * w]
+            return total
+
+        acc = np.zeros((plan[0], port_k.COST_BLOCK))
+        for idx in _cost_dense_walk(ni, n_points, plan):
+            acc = acc + terms[idx]  # idle threads add the 0 at index -1
+        partials = block_sums(acc)
+        last = np.zeros((1, port_k.COST_BLOCK))
+        for i in range(0, len(partials), port_k.COST_BLOCK):
+            chunk = partials[i:i + port_k.COST_BLOCK]
+            last[0, :len(chunk)] = last[0, :len(chunk)] + chunk
+        return block_sums(last)[0]
+
+    want = float(port_k.fused_cost_dense_plain(*args, "SoftLOneLoss", 1.0))
+    assert abs(kernel_order_sum(args) - want) <= 1e-12 * abs(want)
+    pts, isd = args[2].clone(), args[4].clone()
+    pts[5], isd[5 * ni:6 * ni] = float("nan"), 0.0
+    nan_args = args[:2] + (pts, args[3], isd)
+    assert np.isnan(kernel_order_sum(nan_args))
+    assert np.isnan(float(port_k.fused_cost_dense_plain(
+        *nan_args, "SoftLOneLoss", 1.0)))
