@@ -68,9 +68,21 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     modes' kernels against its plain version at 64 x 8,192 and on a ragged
     37 x 1,000 grid (f32), bit-equal across two calls, then the tool's
     timings beside each mode's bound, and the product step alone beside
-    torch.mm(op_a.T, op_g) on the same operands (FP32, no TF32).
-Then the card's name and power limit, one {"kernels": [...]} JSON line, and
-as the last line {"ok": true, "device": {...}}.
+    torch.mm(op_a.T, op_g) on the same operands (FP32, no TF32);
+14. `create_tracks` and `reconstruct`, through the command runner, on phase
+    9's dataset and matches (32 images): the result graded against the
+    generator's truth (all 32 shots in one reconstruction, camera-centre,
+    point and reprojection RMS within the bounds below), where the time
+    went (image pairs, bootstrap, growth loop, each kind of bundle with its
+    LM routes, resection rounds, triangulation calls), every kernel's
+    launches over `reconstruct` (rows 1 and 2 must launch), one resection
+    round traced at 1 and at 8 candidates and one triangulation at two
+    sizes (their device launches must not grow), one growth step traced for
+    the device's busy share, and `reconstruct` of an 8-image subset on the
+    card against the CPU.
+Then one {"reconstruct": {...}} JSON line, the card's name and power limit,
+one {"kernels": [...]} JSON line, and as the last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1173,12 +1185,9 @@ def run_match_vs_cpu(path, n_pairs=4):
         b1 = cam.bearings_many(p1[m[:, 0], :2])
         b2 = cam.bearings_many(p2[m[:, 1], :2])
         n = len(m)
-        n_pad = max(64, 1 << int(n - 1).bit_length())
-        mask = torch.zeros(n_pad, dtype=torch.bool)
-        mask[:n] = True
-        k = ransac.CHUNK
-        samples = torch.cat([ransac.draw_samples(99, ci, n_pad, k, 5, mask)
-                             for ci in range(2)]).numpy()
+        samples = np.concatenate([ransac.draw_subsets(99, ci, [n],
+                                                      ransac.CHUNK, 5)[0]
+                                  for ci in range(2)])
         res = {}
         for dev in ("cuda", "cpu"):
             t0 = time.perf_counter()
@@ -1303,6 +1312,281 @@ def profile_match_pair(path):
         log(f"    {ms:9.3f} ms  x{n:<6d} {name[:90]}")
     return dict(desc_ms=t_desc * 1e3, ransac_ms=t_rob * 1e3,
                 profiled_wall_ms=wall, device_busy_ms=busy)
+
+
+# --------------------------------------------------------------------------
+# create_tracks + reconstruct: the main path on the card (phase 14)
+# --------------------------------------------------------------------------
+
+RECON_SUBSET = 8  # images of the card-vs-CPU subset
+# Bounds on the reconstruction of phase 9's dataset against the generator's
+# truth (synthetic_bundle.grade_reconstruction), set from CPU runs of the
+# same chain before the first card run (truth matches, track windows of 3
+# and 8): 6 images x 600 points read centre RMS 4.1e-3 m, point RMS
+# 8.2e-3 m, reprojection RMS 4.1e-4; 16 x 4,096 read 1.5e-3 m, 5.4e-3 m,
+# 5.09e-4 (NOISE is 5e-4).
+MAX_CENTRE_RMS = 0.01  # m, after a similarity fit to the true centres
+MAX_POINT_RMS = 0.02  # m, same fit, over the tracks of one true point
+MAX_REPROJ_RMS = 1.5  # x NOISE, over the observations the map keeps
+MAX_MISMATCHED = 0.01  # share of points whose track mixes true points
+# Card vs CPU on the subset, the same draws (CPU generators): the largest
+# camera-centre difference, in the same (GPS) frame.
+CARD_CPU_CENTRE_TOL = 1e-4  # m
+# A resection round of 8 candidates against 1: device launches may grow by
+# this factor at most (one batched computation per chunk).
+ROUND_LAUNCH_GROWTH = 1.1
+
+
+def _trace(fn):
+    """(result, kernels, copies, device busy ms, wall ms) of one call of
+    `fn` under torch.profiler (device activity), after one warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, n, rows = device_time(prof)
+    copies = sum(k for _, k, name in rows
+                 if name.startswith(("Memcpy", "Memset")))
+    return out, n - copies, copies, busy, wall
+
+
+def recon_breakdown(report):
+    """Where `reconstruct`'s time went, from its report: the stages, the
+    bundles of each kind (count, setup s, run s, LM routes), the resection
+    rounds and the triangulation calls with their sizes."""
+    from collections import Counter
+
+    out = {"compute_image_pairs_s": report["wall_times"]["compute_image_pairs"],
+           "compute_reconstructions_s":
+               report["wall_times"]["compute_reconstructions"],
+           "bootstrap_s": 0.0, "grow_s": 0.0}
+    bundles = {k: [] for k in ("global", "local", "shot_poses")}
+    rounds, tri, retri = [], [], []
+    resection_s = 0.0
+    for rec in report["reconstructions"]:
+        out["bootstrap_s"] += rec.get("bootstrap_time", 0.0)
+        boot = rec["bootstrap"]
+        bundles["shot_poses"] += boot.get("bundle_shot_poses", [])
+        if "retriangulation" in boot:
+            retri.append(boot["retriangulation"])
+        if "grow" not in rec:
+            continue
+        out["grow_s"] += rec["grow_time"]
+        grow = rec["grow"]
+        bundles["global"] += [grow["bundle_initial"], grow["bundle_final"]]
+        for step in grow["steps"]:
+            bundles["shot_poses"].append(step["bundle_shot_poses"])
+            bundles["global"] += [step[k] for k in (
+                "bundle", "bundle_after_retriangulation") if k in step]
+            if "local_bundle" in step:
+                bundles["local"].append(step["local_bundle"])
+            rounds += step["resection_rounds"]
+            resection_s += step["resection_time"]
+            tri.append(step["triangulation"])
+            if "retriangulation" in step:
+                retri.append(step["retriangulation"])
+    out["bundles"] = {k: dict(
+        count=len(v), setup_s=sum(b["wall_times"]["setup"] for b in v),
+        run_s=sum(b["wall_times"]["run"] for b in v),
+        routes=dict(Counter(b["route"] for b in v)))
+        for k, v in bundles.items()}
+    out["resection"] = dict(rounds=len(rounds), seconds=resection_s,
+                            candidates=dict(Counter(rounds)))
+    out["triangulation"] = dict(
+        calls=len(tri), seconds=sum(t["time"] for t in tri),
+        tracks=[t["tracks"] for t in tri], rays=max(
+            (t["rays"] for t in tri), default=0))
+    out["retriangulation"] = dict(
+        calls=len(retri), seconds=sum(r["wall_time"] for r in retri),
+        tracks=[r["triangulation"]["tracks"] for r in retri])
+    return out
+
+
+def _subset_card_vs_cpu(match_path, dev="cuda"):
+    """Phase 14's card-vs-CPU check: `reconstruct` of an 8-image subset
+    (phase 9's matches among them, one tracks.csv) on the card and on the
+    CPU; the RANSAC draws come from CPU generators, so both see the same
+    samples."""
+    import synthetic_bundle as sb
+    from opensfm_tpu_torch.commands import command_runner, opensfm_commands
+    from opensfm_tpu_torch.dataset import DataSet
+
+    base = os.path.join(WORK, "recon_subset")
+    images = [sb.shot_id(i) for i in range(RECON_SUBSET)]
+    sb.subset_dataset(match_path, base, images, matches=True)
+    command_runner(opensfm_commands,
+                   argv=["create_tracks", base, "--device", dev])
+    recs, secs = {}, {}
+    for name, on in (("card", dev), ("cpu", "cpu")):
+        path = f"{base}_{name}"
+        shutil.rmtree(path, ignore_errors=True)
+        shutil.copytree(base, path)
+        t0 = time.perf_counter()
+        command_runner(opensfm_commands,
+                       argv=["reconstruct", path, "--device", on])
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        recs[name] = DataSet(path).load_reconstruction()
+    card, cpu = recs["card"], recs["cpu"]
+    check(len(card) == len(cpu) == 1, "subset: one reconstruction each")
+    check(set(card[0].shots) == set(cpu[0].shots) == set(images),
+          "subset: the card and the CPU reconstruct the same 8 shots")
+    diff = max(float(np.linalg.norm(card[0].shots[s].pose.get_origin()
+                                    - cpu[0].shots[s].pose.get_origin()))
+               for s in images)
+    log(f"  card vs CPU, {RECON_SUBSET}-image subset: card "
+        f"{secs['card']:.2f} s, CPU {secs['cpu']:.2f} s; points "
+        f"{len(card[0].points)} / {len(cpu[0].points)}; largest centre "
+        f"difference {diff:.3e} m (bound {CARD_CPU_CENTRE_TOL:g})")
+    check(diff < CARD_CPU_CENTRE_TOL, f"subset centres within "
+          f"{CARD_CPU_CENTRE_TOL:g} m of the CPU's ({diff:.3e})")
+    return dict(card_s=secs["card"], cpu_s=secs["cpu"],
+                max_centre_diff_m=diff)
+
+
+def run_reconstruct(match_path, feature_points, dev="cuda"):
+    """Phase 14: `create_tracks` then `reconstruct` on phase 9's dataset and
+    matches, on the card through the command runner; the result graded
+    against the generator's truth, the time broken down, the kernels'
+    launches read around `reconstruct`, a resection round (B = 1, 8) and a
+    triangulation (two sizes) traced for their launches, one growth step
+    traced for the device's busy share, and an 8-image subset on the card
+    against the CPU."""
+    import copy
+
+    import synthetic_bundle as sb
+    from opensfm_tpu_torch import multiview
+    from opensfm_tpu_torch import reconstruction as R
+    from opensfm_tpu_torch.commands import command_runner, opensfm_commands
+    from opensfm_tpu_torch.dataset import DataSet
+
+    path = match_path
+    t0 = time.perf_counter()
+    command_runner(opensfm_commands,
+                   argv=["create_tracks", path, "--device", dev])
+    tracks_s = time.perf_counter() - t0
+    data = DataSet(path)
+    trep = json.loads(data.load_report("tracks.json"))
+    log(f"  create_tracks: {tracks_s:.2f} s ({json.dumps(trep['wall_times'])}); "
+        f"{trep['num_tracks']} tracks over {trep['num_images']} images; "
+        f"paths {trep['paths']}")
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = command_runner(opensfm_commands,
+                            argv=["reconstruct", path, "--device", dev])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    log(f"  reconstruct: {wall:.2f} s; kernel launches {counts}")
+    for name in ("fused_residual_jacobian", "fused_cost"):
+        check(counts[name] > 0, f"{name} launched during reconstruct")
+
+    recs = DataSet(path).load_reconstruction()
+    tm = DataSet(path).load_tracks_manager()
+    shots, points = sb.matching_scene(MATCH_SHOTS, MATCH_POINTS, seed=5)
+    grade = sb.grade_reconstruction(recs, tm, feature_points, shots, points)
+    log(f"  graded against the truth: {json.dumps(grade)}")
+    check(grade["reconstructions"] == 1, "one reconstruction")
+    check(grade["shots"] == MATCH_SHOTS, f"{grade['shots']} of "
+          f"{MATCH_SHOTS} shots reconstructed")
+    check(grade["centre_rms"] < MAX_CENTRE_RMS,
+          f"centre RMS {grade['centre_rms']:.3e} m")
+    check(grade["point_rms"] < MAX_POINT_RMS,
+          f"point RMS {grade['point_rms']:.3e} m")
+    check(grade["reprojection_rms"] < MAX_REPROJ_RMS * sb.NOISE,
+          f"reprojection RMS {grade['reprojection_rms']:.3e}")
+    check(grade["points_mismatched"] <= MAX_MISMATCHED * grade["points"],
+          f"{grade['points_mismatched']} points mix true points")
+
+    brk = recon_breakdown(report)
+    log(f"  where the time went: image pairs "
+        f"{brk['compute_image_pairs_s']:.2f} s, bootstrap "
+        f"{brk['bootstrap_s']:.2f} s, growth loop {brk['grow_s']:.2f} s")
+    for kind, b in brk["bundles"].items():
+        log(f"    {kind} bundles: {b['count']}, setup {b['setup_s']:.2f} s, "
+            f"run {b['run_s']:.2f} s, LM routes {b['routes']}")
+    log(f"    resection: {brk['resection']['rounds']} rounds "
+        f"(candidates per round: {brk['resection']['candidates']}), "
+        f"{brk['resection']['seconds']:.2f} s")
+    log(f"    triangulation: {brk['triangulation']['calls']} calls of "
+        f"{brk['triangulation']['tracks']} tracks (up to "
+        f"{brk['triangulation']['rays']} rays), "
+        f"{brk['triangulation']['seconds']:.2f} s; retriangulation "
+        f"{brk['retriangulation']['calls']} calls of "
+        f"{brk['retriangulation']['tracks']} tracks, "
+        f"{brk['retriangulation']['seconds']:.2f} s")
+
+    # Launches of one resection round at B = 1 and B = 8 candidates.
+    rec = recs[0]
+    dev = torch.device(dev)
+    cfg = data.config
+    gathered = [R._resect_gather(data, tm, rec, s)[0]
+                for s in sorted(rec.shots)[:8]]
+    per_b = {}
+    for B in (1, 8):
+        _, k, c, busy, ms = _trace(lambda: multiview.absolute_pose_ransac_batched(
+            [g[0] for g in gathered[:B]], [g[1] for g in gathered[:B]],
+            cfg["resection_threshold"], 1000, device=dev))
+        per_b[B] = dict(kernels=k, copies=c, busy_ms=busy, wall_ms=ms,
+                        rows=[len(g[0]) for g in gathered[:B]])
+    log(f"  resection round, traced: {json.dumps(per_b)}")
+    check(per_b[8]["kernels"] <= ROUND_LAUNCH_GROWTH * per_b[1]["kernels"],
+          "a round of 8 candidates launches no more than one of 1 "
+          f"({per_b[8]['kernels']} vs {per_b[1]['kernels']})")
+
+    # Launches of one triangulate_tracks call at two sizes.
+    tri_rec = copy.deepcopy(rec)
+    track_ids = sorted(rec.points)
+    per_n = {}
+    for n in (1000, len(track_ids)):
+        def run(n=n):
+            tri_rec.points = {}
+            return R.triangulate_tracks(track_ids[:n], tm, tri_rec, cfg,
+                                        device=dev)
+        size, k, c, busy, ms = _trace(run)
+        per_n[n] = dict(size, kernels=k, copies=c, busy_ms=busy, wall_ms=ms)
+    log(f"  triangulate_tracks, traced: {json.dumps(per_n)}")
+    k_small, k_big = (per_n[n]["kernels"] for n in per_n)
+    check(k_big <= ROUND_LAUNCH_GROWTH * k_small,
+          f"triangulation launches do not grow with the tracks "
+          f"({k_big} vs {k_small})")
+
+    # The device's busy share over one growth step: the last shot taken
+    # out and added back (resection, pose bundle, triangulation, local
+    # bundle).
+    camera_priors = data.load_camera_models()
+    step_shot = sorted(rec.shots)[MATCH_SHOTS // 2]
+
+    def growth_step():
+        r = copy.deepcopy(rec)
+        r.remove_shot(step_shot)
+        ok, new_shots, _, _ = R.resect_candidates_batched(
+            data, tm, r, [step_shot], cfg["resection_threshold"],
+            cfg["resection_min_inliers"], device=dev)
+        check(ok, "the traced growth step resects its shot")
+        R.bundle_shot_poses(r, new_shots, camera_priors, {}, cfg, device=dev)
+        R.triangulate_shot_features(tm, r, new_shots, cfg, device=dev)
+        R.bundle_local(r, camera_priors, {}, None, step_shot, cfg,
+                       device=dev)
+
+    _, k, c, busy, ms = _trace(growth_step)
+    step = dict(kernels=k, copies=c, busy_ms=busy, wall_ms=ms,
+                busy_share=busy / ms)
+    log(f"  one growth step, traced: {ms:.1f} ms of wall, device busy "
+        f"{busy:.1f} ms ({100 * busy / ms:.2f} %), {k} kernels, {c} copies")
+
+    vs_cpu = _subset_card_vs_cpu(match_path, str(dev))
+    return dict(create_tracks_s=tracks_s, reconstruct_s=wall,
+                launches=counts, grade=grade, breakdown=brk,
+                resection_round=per_b, triangulation=per_n,
+                growth_step=step, subset_vs_cpu=vs_cpu)
 
 
 # --------------------------------------------------------------------------
@@ -1677,6 +1961,12 @@ def main() -> int:
     log(f"  done in {time.perf_counter() - t0:.1f} s; launches "
         f"{variant_launches}")
 
+    log(f"phase 14: create_tracks + reconstruct, {MATCH_SHOTS} images x "
+        f"{MATCH_FEATURES} features ({card})")
+    t0 = time.perf_counter()
+    recon = run_reconstruct(match_path, tracks)
+    log(f"  done in {time.perf_counter() - t0:.1f} s")
+
     paths = {name: ("bundle command 256x32768xK=8, f64", counts)
              for name in ("fused_residual_jacobian", "fused_cost")}
     paths.update({name: ("bundle_adjust dense 64x8192, f64", dense_counts)
@@ -1737,6 +2027,7 @@ def main() -> int:
             ms_f32=f32["ms"], plain_ms_f32=f32["plain_ms"],
             bound_ms_f32=f32["bound_ms"], library_ms_f32=f32["library_ms"],
         ))
+        kernels[-1]["launches_reconstruct"] = recon["launches"][name]
         if name == "fused_schur_assembly":
             kernels[-1].update(sub_kernel_ms=schur_split,
                                product_step_torch_mm_ms=product_mm_ms)
@@ -1745,6 +2036,8 @@ def main() -> int:
                    if k.split()[0] == ROW_KERNEL[name]}
             kernels[-1].update(launches_per_call=per_call_1_3_5[name],
                                ptxas=ptx)
+    print(json.dumps({"reconstruct": {k: v for k, v in recon.items()
+                                      if k != "launches"}}), flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -212,6 +212,7 @@ class BAResult:
     lam: float = 0.0
     covariances: Optional[np.ndarray] = None
     covariance_valid: bool = False
+    route: str = "canonical"  # canonical, dense or fused_dense
 
 
 def problem_from_numpy(src) -> BAProblem:
@@ -1075,6 +1076,9 @@ def bundle_adjust(
         torch.backends.cuda.matmul.allow_tf32 = False
     problem, dense, state, data = device_problem(problem, dtype, device)
     ni, nr, nc = len(problem.inst), len(problem.rigcam), len(problem.cam)
+    route = ("fused_dense" if _fused_dense(state[3], ni, problem.cam.shape[1],
+                                           dense)
+             else "dense" if dense else "canonical")
 
     context.record_dispatch("bundle_lm_solve")
     state, cost0, cost1, lam1, accepted = _lm_solve(
@@ -1091,4 +1095,5 @@ def bundle_adjust(
         final_cost=float(cost1),
         iterations=int(accepted),
         lam=float(lam1),
+        route=route,
     )

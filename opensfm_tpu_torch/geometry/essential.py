@@ -1,12 +1,15 @@
-"""Essential matrix estimation, batched in torch.
+"""Essential matrix estimation and relative pose, batched in torch.
 
-Port of the part of `opensfm_tpu.geometry.essential` that RANSAC needs: the
-least-squares N-point essential matrix, Nistér's 5-point minimal solver
-(nullspace basis, the ten cubic constraints over 20 monomials, Gauss-Jordan
-to a 10x10 action matrix, its characteristic polynomial by
-Faddeev-LeVerrier, Durand-Kerner roots and inverse-iteration eigenvectors)
-and the epipolar geodesic error.  Every function takes a leading batch of
-problems.  Convention: bearings x in camera 1, y in camera 2, y^T E x = 0.
+Port of `opensfm_tpu.geometry.essential`: the least-squares N-point
+essential matrix, Nistér's 5-point minimal solver (nullspace basis, the ten
+cubic constraints over 20 monomials, Gauss-Jordan to a 10x10 action matrix,
+its characteristic polynomial by Faddeev-LeVerrier, Durand-Kerner roots and
+inverse-iteration eigenvectors), the epipolar geodesic error, and the
+relative pose: decomposition of E, cheirality vote, the RelativePose
+RANSAC error and the Gauss-Newton refinement (with a closed-form Jacobian
+where the JAX package differentiates forward).  Every function takes a
+leading batch of problems.  Convention: bearings x in camera 1, y in camera
+2, y^T E x = 0, and [R|t] maps camera 1 to camera 2 (y ~ R x + t).
 
 The nullspace basis comes from the SVD of the 5x9 epipolar system, which
 differs between LAPACK builds and devices, so the ten candidates agree with
@@ -20,7 +23,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from opensfm_tpu_torch.geometry import rotation as rot
 from opensfm_tpu_torch.geometry.polynomial import real_roots
+from opensfm_tpu_torch.geometry.triangulation import (
+    triangulate_two_bearings_midpoint,
+)
 from opensfm_tpu_torch.ops import linalg
 
 
@@ -215,3 +222,114 @@ def epipolar_geodesic_error(E: torch.Tensor, x: torch.Tensor,
     Ex = torch.einsum("...ij,...nj->...ni", E, x)
     val = torch.sum(y * Ex, dim=-1)
     return torch.arcsin(torch.clamp(val, -1.0, 1.0))
+
+
+def decompose_essential(E: torch.Tensor):
+    """The four candidate (R, t) with |t| = 1 of E = [t]x R.
+    Returns (Rs [..., 4, 3, 3], ts [..., 4, 3])."""
+    U, _, Vt = torch.linalg.svd(E)
+    # Proper rotations.
+    U = U * linalg.det3(U)[..., None, None]
+    Vt = Vt * linalg.det3(Vt)[..., None, None]
+    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                     dtype=E.dtype, device=E.device)
+    Ra = U @ W @ Vt
+    Rb = U @ W.T @ Vt
+    t = U[..., :, 2]
+    Rs = torch.stack([Ra, Ra, Rb, Rb], dim=-3)
+    ts = torch.stack([t, -t, t, -t], dim=-2)
+    return Rs, ts
+
+
+def relative_pose_from_essential(E: torch.Tensor, x: torch.Tensor,
+                                 y: torch.Tensor, mask=None) -> torch.Tensor:
+    """[R|t] of the decomposition of E that puts the most pairs in front of
+    both cameras (RelativePoseFromEssential, relative_pose.h:13); ties go
+    to the first candidate.  E [..., 3, 3], x, y [..., N, 3] bearing pairs
+    (mask [..., N]) broadcasting against E's leading dimensions.  Returns
+    [..., 3, 4]."""
+    Rs, ts = decompose_essential(E)  # [..., 4, 3, 3], [..., 4, 3]
+    ok, _ = triangulate_two_bearings_midpoint(
+        x[..., None, :, :], y[..., None, :, :], Rs, ts)  # [..., 4, N]
+    if mask is not None:
+        ok = ok & mask[..., None, :]
+    counts = torch.sum(ok.to(torch.int32), dim=-1)
+    best = torch.argmax(counts, dim=-1)
+    R = torch.take_along_dim(Rs, best[..., None, None, None], dim=-3)[..., 0,
+                                                                      :, :]
+    t = torch.take_along_dim(ts, best[..., None, None], dim=-2)[..., 0, :]
+    return torch.cat([R, t[..., None]], dim=-1)
+
+
+def essential_from_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """E = [t]x R with t normalized to unit length."""
+    tn = t / torch.clamp_min(torch.linalg.vector_norm(t, dim=-1, keepdim=True),
+                             1e-15)
+    return rot.hat(tn) @ R
+
+
+def relative_pose_error(Rt: torch.Tensor, x: torch.Tensor,
+                        y: torch.Tensor) -> torch.Tensor:
+    """1 - mean bearing agreement after midpoint triangulation, the
+    RelativePose RANSAC error (relative_pose_model.h:39-65); 1 where the
+    triangulation fails.  Rt [..., 3, 4], x, y [..., N, 3] broadcasting
+    against Rt's leading dimensions.  Returns [..., N]."""
+    R = Rt[..., :3, :3]
+    t = Rt[..., :3, 3]
+    ok, X = triangulate_two_bearings_midpoint(x, y, R, t)
+    px = X / torch.clamp_min(torch.linalg.vector_norm(X, dim=-1, keepdim=True),
+                             1e-15)
+    Xc2 = X @ R.transpose(-1, -2) + t[..., None, :]
+    py = Xc2 / torch.clamp_min(torch.linalg.vector_norm(Xc2, dim=-1,
+                                                        keepdim=True), 1e-15)
+    err = 1.0 - 0.5 * (torch.sum(px * x, dim=-1) + torch.sum(py * y, dim=-1))
+    return torch.where(ok, err, torch.ones_like(err))
+
+
+def refine_relative_pose(Rt: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                         mask=None, iterations: int = 10) -> torch.Tensor:
+    """Gauss-Newton refinement of [R|t] on the epipolar geodesic residual
+    asin(y . [t]x R x) (RelativePoseRefinement, relative_pose.h:155); the
+    translation is renormalized to unit length each step (scale is not
+    observable).  Rt [..., 3, 4], x, y [..., N, 3]."""
+    params = torch.cat([
+        rot.matrix_to_rotvec(Rt[..., :3, :3]),
+        Rt[..., :3, 3] / torch.clamp_min(torch.linalg.vector_norm(
+            Rt[..., :3, 3], dim=-1, keepdim=True), 1e-15),
+    ], dim=-1)
+    w = None if mask is None else mask.to(Rt.dtype)
+    eye3 = torch.eye(3, dtype=Rt.dtype, device=Rt.device)
+    eye6 = torch.eye(6, dtype=Rt.dtype, device=Rt.device)
+    for _ in range(iterations):
+        r, t = params[..., None, :3], params[..., 3:6]
+        tnorm = torch.linalg.vector_norm(t, dim=-1, keepdim=True)
+        tn = t / torch.clamp_min(tnorm, 1e-15)
+        Rx = rot.rotate(r, x)  # [..., N, 3] = R x
+        s = torch.sum(y * torch.linalg.cross(tn[..., None, :].expand_as(Rx),
+                                             Rx, dim=-1), dim=-1)
+        res = torch.arcsin(torch.clamp(s, -1.0, 1.0))
+        dasin = torch.where(torch.abs(s) < 1.0,
+                            1.0 / torch.sqrt(torch.clamp_min(1.0 - s * s,
+                                                             1e-300)),
+                            torch.zeros_like(s))
+        # s = tn . (Rx x y): ds/dtn = Rx x y, dtn/dt = (I - tn tn^T)/|t|;
+        # s = (y x tn) . Rx: ds/dr = (y x tn)^T dRx/dr.
+        dtn = (eye3 - tn[..., :, None] * tn[..., None, :]) / torch.clamp_min(
+            tnorm, 1e-15)[..., None]
+        ds_dt = torch.einsum("...nj,...ji->...ni",
+                             torch.linalg.cross(Rx, y, dim=-1), dtn)
+        a = torch.linalg.cross(y, tn[..., None, :].expand_as(y), dim=-1)
+        ds_dr = torch.einsum("...nj,...nji->...ni", a,
+                             rot.rotate_jacobian(r, x))
+        J = torch.cat([ds_dr, ds_dt], dim=-1) * dasin[..., None]  # [..., N, 6]
+        if w is not None:
+            res = res * w
+            J = J * w[..., None]
+        JtJ = J.transpose(-1, -2) @ J
+        Jtr = torch.einsum("...ni,...n->...i", J, res)
+        new = params - linalg.solve_spd(JtJ + 1e-9 * eye6, Jtr)
+        tn_new = new[..., 3:6] / torch.clamp_min(torch.linalg.vector_norm(
+            new[..., 3:6], dim=-1, keepdim=True), 1e-15)
+        params = torch.cat([new[..., :3], tn_new], dim=-1)
+    R = rot.rotvec_to_matrix(params[..., :3])
+    return torch.cat([R, params[..., 3:6, None]], dim=-1)

@@ -1,4 +1,5 @@
-"""Batched rotation math (angle-axis <-> matrix) on torch tensors.
+"""Batched rotation math (angle-axis <-> matrix <-> quaternion) on torch
+tensors.
 
 Port of `opensfm_tpu.geometry.rotation`: every function broadcasts over
 leading batch dimensions and keeps the guarded small-angle Taylor branches,
@@ -56,6 +57,54 @@ def rotvec_to_matrix(r: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(3, dtype=r.dtype, device=r.device).expand(K.shape)
     K2 = rrT - theta2[..., None, None] * eye
     return eye + a[..., None, None] * K + b[..., None, None] * K2
+
+
+def matrix_to_rotvec(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> angle-axis [..., 3], through the unit
+    quaternion (stable over the whole range, angles near pi included)."""
+    return quat_to_rotvec(matrix_to_quat(R))
+
+
+def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion (w, x, y, z) with w >= 0, by the
+    branch-free Shepperd method: the four candidates are formed and the
+    best-conditioned one (largest 4 q_i^2) is kept."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20],
+                     dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21],
+                     dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22],
+                     dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)  # [..., 4, 4]
+    mags = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                        1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1)
+    best = torch.argmax(mags, dim=-1)
+    q = torch.take_along_dim(
+        cands, best[..., None, None].expand(best.shape + (1, 4)), dim=-2
+    )[..., 0, :]
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def quat_to_rotvec(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) -> angle-axis [..., 3], with a guarded
+    norm so derivatives stay finite at the identity."""
+    w = torch.clamp(q[..., 0], -1.0, 1.0)
+    v = q[..., 1:]
+    n2 = torch.sum(v * v, dim=-1)
+    small = n2 < 1e-18
+    safe_n2 = torch.where(small, torch.ones_like(n2), n2)
+    sin_half = torch.sqrt(safe_n2)
+    half = torch.atan2(torch.where(small, torch.zeros_like(sin_half),
+                                   sin_half), w)
+    scale = torch.where(small, 2.0 + (2.0 * half) ** 2 / 12.0,
+                        2.0 * half / sin_half)
+    return v * scale[..., None]
 
 
 def rotate(r: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -598,6 +598,13 @@ class TracksManager:
 
     # -- serialization -------------------------------------------------------
     def as_string(self) -> str:
+        from opensfm_tpu_torch import native
+
+        if native.available():
+            return self._as_string_native()
+        return self._as_string_python()
+
+    def _as_string_python(self) -> str:
         lines = [f"{TRACKS_HEADER}_v{TRACKS_VERSION}"]
         for shot_id, tracks in self._tracks_per_shot.items():
             for track_id, o in tracks.items():
@@ -608,8 +615,83 @@ class TracksManager:
                 )
         return "\n".join(lines) + "\n"
 
+    def _as_string_native(self) -> str:
+        """Gather columns, let the C++ core do the number formatting."""
+        from opensfm_tpu_torch import native
+
+        shot_names = list(self._tracks_per_shot.keys())
+        shot_ids = {s: i for i, s in enumerate(shot_names)}
+        track_ids: Dict[str, int] = {}
+        track_names: List[str] = []
+        n = sum(len(t) for t in self._tracks_per_shot.values())
+        shot_idx = np.empty(n, dtype=np.int32)
+        track_idx = np.empty(n, dtype=np.int32)
+        feat_id = np.empty(n, dtype=np.int64)
+        xys = np.empty((n, 3), dtype=np.float64)
+        rgb = np.empty((n, 3), dtype=np.int64)
+        seg_inst = np.empty((n, 2), dtype=np.int64)
+        i = 0
+        for shot_id, tracks in self._tracks_per_shot.items():
+            si = shot_ids[shot_id]
+            for track_id, o in tracks.items():
+                ti = track_ids.get(track_id)
+                if ti is None:
+                    ti = track_ids[track_id] = len(track_names)
+                    track_names.append(track_id)
+                shot_idx[i] = si
+                track_idx[i] = ti
+                feat_id[i] = o.id
+                xys[i, 0] = o.point[0]
+                xys[i, 1] = o.point[1]
+                xys[i, 2] = o.scale
+                rgb[i] = o.color
+                seg_inst[i, 0] = o.segmentation
+                seg_inst[i, 1] = o.instance
+                i += 1
+        return native.serialize_tracks(
+            shot_names, track_names, shot_idx, track_idx, feat_id, xys, rgb,
+            seg_inst,
+        )
+
     @staticmethod
     def instanciate_from_string(s: str) -> "TracksManager":
+        from opensfm_tpu_torch import native
+
+        if native.available():
+            try:
+                return TracksManager._from_columnar(*native.parse_tracks(s))
+            except native.NativeError:
+                pass  # malformed for the strict parser: retry in Python
+        return TracksManager._instanciate_from_string_python(s)
+
+    @staticmethod
+    def _from_columnar(
+        shot_names, track_names, shot_idx, track_idx, feat_id, xys, rgb,
+        seg_inst,
+    ) -> "TracksManager":
+        tm = TracksManager()
+        tps = tm._tracks_per_shot
+        spt = tm._shots_per_track
+        colors = rgb  # int64 [n,3]
+        scales = xys[:, 2]
+        points = xys[:, :2]
+        for i in range(len(shot_idx)):
+            o = Observation.__new__(Observation)
+            o.point = points[i]
+            o.scale = float(scales[i])
+            o.color = colors[i]
+            o.id = int(feat_id[i])
+            o.segmentation = int(seg_inst[i, 0])
+            o.instance = int(seg_inst[i, 1])
+            o.depth_prior = None
+            shot = shot_names[shot_idx[i]]
+            track = track_names[track_idx[i]]
+            tps.setdefault(shot, {})[track] = o
+            spt.setdefault(track, {})[shot] = o
+        return tm
+
+    @staticmethod
+    def _instanciate_from_string_python(s: str) -> "TracksManager":
         lines = s.splitlines()
         version = 0
         start = 0

@@ -12,6 +12,8 @@ circle of shots: features with uint8 descriptors (one random descriptor per
 3D point plus small noise per observation, padded with random distractors),
 optional words, EXIF with GPS and the camera; it returns which point each
 feature observes, and `match_scores` grades written matches against it.
+`matching_scene` gives the true shots and points of such a dataset, and
+`grade_reconstruction` grades a reconstruction of it against them.
 """
 
 from __future__ import annotations
@@ -180,8 +182,12 @@ def write_dataset(path: str, problem: BAProblem,
 
 
 def reprojection_rms(reconstruction: types.Reconstruction,
-                     tracks: pymap.TracksManager) -> float:
-    """RMS over observations and both coordinates of (projection - uv)."""
+                     tracks: pymap.TracksManager,
+                     max_error: float = np.inf) -> float:
+    """RMS over observations and both coordinates of (projection - uv), over
+    the track observations of the reconstructed points whose error is at
+    most `max_error` (a saved reconstruction does not record which
+    observations its outlier removal dropped)."""
     sq, n = 0.0, 0
     for sid, shot in reconstruction.shots.items():
         obs = tracks.get_shot_observations(sid)
@@ -193,6 +199,7 @@ def reprojection_rms(reconstruction: types.Reconstruction,
         pose = shot.pose
         pc = X @ pose.get_rotation_matrix().T + pose.translation
         err = shot.camera.project(pc) - uv
+        err = err[np.linalg.norm(err, axis=1) <= max_error]
         sq += float(np.sum(err * err))
         n += err.size
     return float(np.sqrt(sq / max(n, 1)))
@@ -203,6 +210,15 @@ def reprojection_rms(reconstruction: types.Reconstruction,
 GPS_ORIGIN = (52.519, 13.401, 30.0)
 DESCRIPTOR_NOISE = 3  # per byte of an observed descriptor, uniform integers
 WORDS_VOCABULARY = 4096  # words of the synthetic vocabulary
+
+
+def matching_scene(n_shots: int, n_points: int, seed: int = 0
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """The true (shots [n_shots, 6] as `circle_shots`, points [n_points, 3])
+    of `write_matching_dataset` with the same arguments: the points are
+    its generator's first draw."""
+    rng = np.random.default_rng(seed)
+    return circle_shots(n_shots), rng.uniform(-4, 4, (n_points, 3))
 
 
 def write_matching_dataset(path: str, n_shots: int = 32,
@@ -298,9 +314,11 @@ def write_matching_dataset(path: str, n_shots: int = 32,
 
 
 def subset_dataset(path: str, out: str, images: List[str],
-                   config: Optional[Dict[str, Any]] = None) -> None:
+                   config: Optional[Dict[str, Any]] = None,
+                   matches: bool = False) -> None:
     """A copy of the matching dataset at `path` restricted to `images`,
-    with `config` over its config.yaml."""
+    with `config` over its config.yaml; with `matches`, also the written
+    matches among those images."""
     shutil.rmtree(out, ignore_errors=True)
     for sub in ("exif", "features"):
         os.makedirs(os.path.join(out, sub))
@@ -319,6 +337,16 @@ def subset_dataset(path: str, out: str, images: List[str],
             src = os.path.join(path, "features", im + suffix)
             if os.path.isfile(src):
                 shutil.copy(src, os.path.join(out, "features"))
+    if matches:
+        from opensfm_tpu_torch.dataset import DataSet
+
+        src, dst = DataSet(path), DataSet(out)
+        keep = set(images)
+        for im in images:
+            if src.matches_exists(im):
+                dst.save_matches(im, {other: m for other, m in
+                                      src.load_matches(im).items()
+                                      if other in keep})
 
 
 def match_scores(data, tracks: Dict[str, np.ndarray]
@@ -339,3 +367,59 @@ def match_scores(data, tracks: Dict[str, np.ndarray]
                                     tracks[im2][tracks[im2] >= 0])
             shared += len(common)
     return right / max(total, 1), right / max(shared, 1), total
+
+
+def grade_reconstruction(reconstructions: List[types.Reconstruction],
+                         tracks_manager: pymap.TracksManager,
+                         feature_points: Dict[str, np.ndarray],
+                         shots: np.ndarray, points: np.ndarray,
+                         max_error: float = 0.006) -> Dict[str, Any]:
+    """Grade the reconstructions of a `write_matching_dataset` dataset
+    against its truth (`matching_scene`): the shots of the largest one out
+    of all, the RMS of its camera centres after the similarity (Umeyama)
+    that best maps them onto the true centres, the RMS over its points of
+    the same similarity's error against the true point each track observes
+    (tracks whose observations disagree on the point are counted as
+    mismatched and left out), and the reprojection RMS of the observations
+    it keeps (`reprojection_rms` within the default outlier threshold,
+    normalized image units, beside NOISE)."""
+    rec = max(reconstructions, key=lambda r: len(r.shots))
+    ids = sorted(rec.shots)
+    idx = [int(s.split("_")[1].split(".")[0]) for s in ids]
+    true_c = np.array([Pose(shots[i, :3], shots[i, 3:]).get_origin()
+                       for i in idx])
+    est_c = np.array([rec.shots[s].pose.get_origin() for s in ids])
+    # Umeyama: true ~ scale * R @ est + t.
+    mu_e, mu_t = est_c.mean(0), true_c.mean(0)
+    e, t = est_c - mu_e, true_c - mu_t
+    U, S, Vt = np.linalg.svd(t.T @ e / len(ids))
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    R = U @ D @ Vt
+    scale = np.trace(np.diag(S) @ D) / np.mean(np.sum(e * e, axis=1))
+
+    def to_true(X):
+        return scale * (X - mu_e) @ R.T + mu_t
+
+    centre_err = to_true(est_c) - true_c
+    sq, matched, mismatched = 0.0, 0, 0
+    for tid, lm in rec.points.items():
+        pids = {int(feature_points[sid][obs.id])
+                for sid, obs in tracks_manager.get_track_observations(
+                    tid).items()}
+        if len(pids) != 1 or -1 in pids:
+            mismatched += 1
+            continue
+        d = to_true(np.asarray(lm.coordinates)) - points[pids.pop()]
+        sq += float(d @ d)
+        matched += 1
+    return {
+        "shots": len(rec.shots),
+        "reconstructions": len(reconstructions),
+        "points": len(rec.points),
+        "centre_rms": float(np.sqrt(np.mean(np.sum(centre_err ** 2, axis=1)))),
+        "point_rms": float(np.sqrt(sq / max(matched, 1))),
+        "points_matched": matched,
+        "points_mismatched": mismatched,
+        "reprojection_rms": reprojection_rms(rec, tracks_manager, max_error),
+        "scale": float(scale),
+    }

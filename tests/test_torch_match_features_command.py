@@ -39,6 +39,18 @@ from opensfm_tpu_torch.robust import ransac
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs in
+    several worker processes at once, and multi-threaded small ops then
+    wait on each other's cores (tens of times slower); one thread is within
+    2x of eight when the module runs alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _matches(data):
     """{(a, b) with a < b: sorted [K, 2] matches with a's feature first}."""
     out = {}
@@ -55,12 +67,19 @@ def _matches(data):
     return out
 
 
-def _jax_draws(seed, chunk, n_pad, k, s, mask):
-    p = mask.cpu().numpy().astype(np.float64)
-    p = p / max(p.sum(), 1.0)
-    idx = ref_ransac._sample_indices(jax.random.PRNGKey(seed + chunk * 7919),
-                                     n_pad, k, s, jnp.asarray(p))
-    return torch.as_tensor(np.array(idx), device=mask.device)
+def _jax_draws(seed, chunk, counts, k, s):
+    """The JAX package's draws in place of `ransac.draw_subsets`: for each
+    problem of n rows (all valid, so ranks are rows), its padded size's
+    sample indices from the reference's key for the chunk."""
+    out = []
+    for n in counts:
+        n_pad = max(64, 1 << int(n - 1).bit_length())
+        p = np.zeros(n_pad)
+        p[:n] = 1.0 / n
+        out.append(np.array(ref_ransac._sample_indices(
+            jax.random.PRNGKey(seed + chunk * 7919), n_pad, k, s,
+            jnp.asarray(p))))
+    return np.stack(out)
 
 
 @pytest.mark.parametrize("undistorted", [False, True],
@@ -80,9 +99,10 @@ def test_match_features_matches_reference(tmp_path, monkeypatch,
         [sys.executable, "-m", "opensfm_tpu_torch", "match_features", b,
          "--device", "cpu"],
         cwd=REPO, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
     )
     assert proc.returncode == 0, proc.stderr
-    monkeypatch.setattr(ransac, "draw_samples", _jax_draws)
+    monkeypatch.setattr(ransac, "draw_subsets", _jax_draws)
     command_runner(opensfm_commands,
                    argv=["match_features", c, "--device", "cpu"])
 
