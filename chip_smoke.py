@@ -79,8 +79,26 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     round traced at 1 and at 8 candidates and one triangulation at two
     sizes (their device launches must not grow), one growth step traced for
     the device's busy share, and `reconstruct` of an 8-image subset on the
-    card against the CPU.
-Then one {"reconstruct": {...}} JSON line, the card's name and power limit,
+    card against the CPU;
+15. the chain from images at the default config: IMAGE_VIEWS views of
+    2,048 x 1,536 rendered on the card (synthetic_images: two textured
+    boxes on a textured ground, views on a circle) and written as PNGs with
+    an eXIf chunk, then `extract_metadata`, `detect_features`,
+    `match_features`, `create_tracks` and `reconstruct` through the command
+    runner: every view has >= feature_min_frames features, all views land
+    in one reconstruction within the centre and reprojection bounds below,
+    each stage's wall time, the detector's per-image wall time, device
+    busy time and kernels (one image traced), rows 1, 2 and 6's launches
+    over the chain (all must launch), and one image's detection on the card
+    against the CPU at the CPU tests' tolerances;
+16. phase 14's reconstruction split into a thin-bridge pair and reunited by
+    the seeded merge on the card within the JAX test's bounds, then
+    `reconstruct --algorithm triangulation` and `reconstruct_from_prior`
+    through the command runner on a copy whose metadata poses are the
+    truth plus noise, graded against the truth, with wall times and the
+    bundle kernels' launches (rows 1-2 or, where a problem densifies, 3-5).
+Then the {"reconstruct": {...}}, {"image_chain": {...}} and
+{"merge_and_algorithms": {...}} JSON lines, the card's name and power limit,
 one {"kernels": [...]} JSON line, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -165,6 +183,7 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
 }
 DENSE_KERNELS = ("fused_cost_dense", "fused_schur_assembly",
                  "fused_back_substitute")
+BA_KERNELS = ("fused_residual_jacobian", "fused_cost") + DENSE_KERNELS
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1590,6 +1609,370 @@ def run_reconstruct(match_path, feature_points, dev="cuda"):
 
 
 # --------------------------------------------------------------------------
+# From images to a reconstruction (phase 15)
+# --------------------------------------------------------------------------
+
+IMAGE_VIEWS, IMAGE_W, IMAGE_H = 16, 2048, 1536  # feature_process_size 2048
+IMAGE_STEP_DEG = 10.0  # degrees between neighbouring views on the circle
+# Bounds on phase 15's reconstruction against the render's truth
+# (synthetic_images.grade_reconstruction), set from CPU runs of smaller
+# renders of the same 16 views through both packages
+# (image_chain_study.py, the default config otherwise): centre RMS 5.8e-3
+# m (the port) and 5.6e-3 m (the JAX package) at 640 x 480, 6.2e-3 m and
+# 1.38e-2 m at 1,024 x 768; reprojection RMS 0.27-0.39 px.  The bound is
+# 3.5 times the larger, the JAX package's 1.38e-2 m.  A run's reading
+# depends on Python's per-process string-hash seed (set iteration order)
+# in both packages: at 640 x 480 on fixed features, hash seeds 1 and 2 read
+# 5.4e-3 and 7.6e-3 m through the port, 6.0e-3 and 6.4e-3 m through the
+# JAX package; at 2,048 x 1,536 separate runs read 1.36e-2 and 1.85e-2 m
+# on the CPU (the second on the card's features) and 1.38e-2 to 1.70e-2 m
+# on the card (H100).  A broken reconstruction (a wrong basin, a flipped
+# pair) reads decimetres to metres.
+IMAGE_MAX_CENTRE_RMS = 0.05  # m, after a similarity fit to the true centres
+IMAGE_MAX_REPROJ_PX = 1.0  # px of the larger side, observations within 0.006
+# Card vs CPU detector tolerances: tests/test_torch_features.py's, the JAX
+# package's CPU run there standing in for the CPU here.
+DETECT_POS_TOL, DETECT_POS_REL_TOL = 1e-3, 1e-3  # px (99 %), of the size
+DETECT_ANGLE_TOL, DETECT_UNMATCHED = 2.5, 0.005
+
+
+def _detector_partners(pa, pb):
+    """For each keypoint of pa, the index of pb's keypoint of the same
+    position and scale (within 1e-2) with the nearest angle, each used
+    once; -1 where none is."""
+    from scipy.spatial import cKDTree
+
+    tree = cKDTree(pb[:, :3])
+    used = np.zeros(len(pb), bool)
+    out = np.full(len(pa), -1)
+    for i, cand in enumerate(tree.query_ball_point(pa[:, :3], 1e-2,
+                                                   p=np.inf)):
+        cand = [j for j in cand if not used[j]]
+        if cand:
+            ang = np.abs((pb[cand, 3] - pa[i, 3] + 180.0) % 360.0 - 180.0)
+            j = cand[int(np.argmin(ang))]
+            out[i] = j
+            used[j] = True
+    return out
+
+
+def detect_card_vs_cpu(image_gray, config, dev="cuda"):
+    """One image's HAHOG detection (extract_dog_features at the config's
+    first peak threshold and budget) on the card and on the CPU, held to
+    the CPU tests' tolerances: keypoint sets, positions, scales, angles,
+    uint8 descriptors within +-1 on >= 99.9 % of entries."""
+    from opensfm_tpu_torch.ops import features as ops
+
+    kw = dict(peak_threshold=max(float(config["hahog_peak_threshold"]), 1e-7),
+              target_features=config["feature_min_frames"], root_uchar=True,
+              detector="hessian", n_orientations=2,
+              edge_threshold=float(config["hahog_edge_threshold"]))
+    t0 = time.perf_counter()
+    pc, dc = ops.extract_dog_features(image_gray, device=dev, **kw)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pp, dp = ops.extract_dog_features(image_gray, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    j = _detector_partners(pp, pc)
+    ok = j >= 0
+    a, b = pp[ok], pc[j[ok]]
+    dxy = np.abs(a[:, :2] - b[:, :2]).max(axis=1)
+    same = np.abs((a[:, 3] - b[:, 3] + 180.0) % 360.0 - 180.0) \
+        <= DETECT_ANGLE_TOL
+    diff = np.abs(dp[ok][same].astype(int) - dc[j[ok]][same].astype(int))
+    out = dict(card_keypoints=len(pc), cpu_keypoints=len(pp),
+               unmatched_cpu=int((~ok).sum()),
+               unmatched_card=int(len(pc) - ok.sum()),
+               pos_p99_px=float(np.quantile(dxy, 0.99)),
+               pos_max_rel=float((dxy / a[:, 2]).max()),
+               scale_max_rel=float((np.abs(a[:, 2] - b[:, 2]) / a[:, 2]).max()),
+               angle_flips=int((~same).sum()),
+               desc_within_1=float((diff <= 1).mean()),
+               card_s=card_s, cpu_s=cpu_s)
+    log(f"  detector card vs CPU, one {image_gray.shape[1]} x "
+        f"{image_gray.shape[0]} image: {json.dumps(out)}")
+    check(out["unmatched_cpu"] <= DETECT_UNMATCHED * len(pp)
+          and out["unmatched_card"] <= DETECT_UNMATCHED * len(pc),
+          "card and CPU keypoint sets agree")
+    check(out["pos_p99_px"] <= DETECT_POS_TOL
+          and out["pos_max_rel"] <= DETECT_POS_REL_TOL,
+          "card and CPU keypoint positions agree")
+    check(out["scale_max_rel"] <= 1e-6, "card and CPU scales agree")
+    check(out["angle_flips"] <= DETECT_UNMATCHED * int(ok.sum()),
+          "card and CPU angles agree")
+    check(out["desc_within_1"] >= 0.999, "card and CPU descriptors agree")
+    return out
+
+
+def run_image_chain(dev="cuda"):
+    """Phase 15: IMAGE_VIEWS views rendered on the card and written as PNGs
+    with EXIF, then `extract_metadata`, `detect_features`,
+    `match_features`, `create_tracks` and `reconstruct` through the command
+    runner at the default config; the result graded against the render's
+    truth, each stage's wall time, the detector's per-image figures (one
+    image traced), the kernels' launches over the chain, and one image's
+    detection on the card against the CPU."""
+    import synthetic_images as si
+    from opensfm_tpu_torch import features
+    from opensfm_tpu_torch.commands import command_runner, opensfm_commands
+    from opensfm_tpu_torch.dataset import DataSet
+
+    path = os.path.join(WORK, "image_chain")
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    truth = si.write_image_dataset(path, IMAGE_VIEWS, IMAGE_W, IMAGE_H,
+                                   seed=0, device=dev,
+                                   step_deg=IMAGE_STEP_DEG)
+    render_s = time.perf_counter() - t0
+    log(f"  rendered and wrote {IMAGE_VIEWS} PNGs of {IMAGE_W} x {IMAGE_H} "
+        f"in {render_s:.1f} s")
+
+    stages, reports = {}, {}
+    reset_launches()
+    for cmd in ("extract_metadata", "detect_features", "match_features",
+                "create_tracks", "reconstruct"):
+        argv = [cmd, path, "--device", dev]
+        t0 = time.perf_counter()
+        reports[cmd] = command_runner(opensfm_commands, argv=argv)
+        torch.cuda.synchronize()
+        stages[cmd] = time.perf_counter() - t0
+    counts = launches()
+    log(f"  stage wall s: {json.dumps(stages)}")
+    log(f"  kernel launches over the chain: {counts}")
+    for name in ("top2_sqdist", "fused_residual_jacobian", "fused_cost"):
+        check(counts[name] > 0, f"{name} launched in the image chain")
+
+    data = DataSet(path)
+    config = data.config
+    per_image = reports["detect_features"]["images"]
+    n_feat = {im: r["features"] for im, r in per_image.items()}
+    detect_ms = [1e3 * r["detect_s"] for r in per_image.values()]
+    log(f"  features per image: {n_feat}")
+    check(len(n_feat) == IMAGE_VIEWS and min(n_feat.values())
+          >= config["feature_min_frames"],
+          f"every view has >= {config['feature_min_frames']} features")
+    exif = data.load_exif(data.images()[0])
+    check(exif["make"] == si.MAKE and exif["gps"]
+          and exif["focal_ratio"] == si.FOCAL_35MM / 36.0,
+          "EXIF read through the port's parser")
+
+    # One image's detection traced: device busy time and kernels.
+    image = data.load_image(data.images()[0])
+    _, k, c, busy, ms = _trace(lambda: features.extract_features(
+        image, config, False, device=dev))
+    detect = dict(wall_ms_mean=float(np.mean(detect_ms)),
+                  wall_ms_min=float(np.min(detect_ms)),
+                  wall_ms_max=float(np.max(detect_ms)),
+                  traced_wall_ms=ms, traced_busy_ms=busy,
+                  busy_share=busy / ms, kernels_per_image=k,
+                  copies_per_image=c)
+    log(f"  detect_features per image: {json.dumps(detect)}")
+
+    recs = data.load_reconstruction()
+    grade = si.grade_reconstruction(recs, truth, data.load_tracks_manager())
+    cam = next(iter(max(recs, key=lambda r: len(r.shots)).cameras.values()))
+    grade.update(focal=cam.focal, k1=cam.k1, k2=cam.k2)
+    log(f"  graded against the render's truth (true focal "
+        f"{si.FOCAL_35MM / 36.0:.6f}, k1 = k2 = 0): {json.dumps(grade)}")
+    check(grade["reconstructions"] == 1 and grade["shots"] == IMAGE_VIEWS,
+          f"all {IMAGE_VIEWS} views in one reconstruction "
+          f"({grade['shots']} shots, {grade['reconstructions']} "
+          "reconstructions)")
+    check(grade["centre_rms"] < IMAGE_MAX_CENTRE_RMS,
+          f"centre RMS {grade['centre_rms']:.3e} m")
+    check(grade["reprojection_rms_px"] < IMAGE_MAX_REPROJ_PX,
+          f"reprojection RMS {grade['reprojection_rms_px']:.3f} px")
+
+    vs_cpu = detect_card_vs_cpu(features.rgb_to_grey(image), config, dev)
+    return dict(render_s=render_s, stage_s=stages, launches=counts,
+                features=n_feat, detect=detect, grade=grade,
+                detect_vs_cpu=vs_cpu)
+
+
+# --------------------------------------------------------------------------
+# The merge and the other algorithms (phase 16)
+# --------------------------------------------------------------------------
+
+# The merge's bounds: tests/test_reconstruction_incremental.py:233-234's.
+MERGE_MAX_CENTRE_RMS = 0.05  # m, after a similarity fit to the truth
+MERGE_MAX_ROTATION_RMS = 0.005  # rad, the same fit
+# GPS and attitude noise of phase 16's metadata poses.
+PRIOR_GPS_NOISE = 0.1  # m
+PRIOR_ANGLE_NOISE = 0.1  # degrees
+# Bounds on the triangulation and prior runs against the generator's truth,
+# set from a CPU run of the same code on 12 images x 800 points before the
+# first card run (merge: centre RMS 2.9e-3 m, rotation RMS 3.8e-4 rad;
+# triangulation and prior: centre RMS 6.7e-3 m, point RMS 6.6e-3 m,
+# reprojection RMS 1.02 x NOISE).
+PRIOR_MAX_CENTRE_RMS = 0.02  # m
+PRIOR_MAX_POINT_RMS = 0.03  # m
+PRIOR_MAX_REPROJ_RMS = 1.5  # x NOISE
+
+
+def _rotation_rms(rec, ids, shots):
+    """RMS angle (rad) between each shot's rotation and the truth's after
+    the rotation of the similarity that best maps the centres."""
+    from opensfm_tpu_torch.geometry.pose import Pose
+
+    est = np.array([rec.shots[s].pose.get_origin() for s in ids])
+    idx = [int(s.split("_")[1].split(".")[0]) for s in ids]
+    true_poses = [Pose(shots[i, :3], shots[i, 3:]) for i in idx]
+    true = np.array([p.get_origin() for p in true_poses])
+    e, t = est - est.mean(0), true - true.mean(0)
+    U, _, Vt = np.linalg.svd(t.T @ e)
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    Rf = U @ D @ Vt
+    ang = []
+    for s, p in zip(ids, true_poses):
+        Re = rec.shots[s].pose.get_rotation_matrix()  # world to camera
+        M = p.get_rotation_matrix() @ Rf @ Re.T
+        ang.append(np.arccos(np.clip((np.trace(M) - 1) / 2, -1, 1)))
+    return float(np.sqrt(np.mean(np.square(ang))))
+
+
+def _prior_dataset(match_path, out, n_shots, n_points, seed, rng):
+    """A copy of a matching dataset (features, matches, tracks) whose EXIF
+    carries metadata poses: the true centres plus PRIOR_GPS_NOISE and the
+    true attitudes plus PRIOR_ANGLE_NOISE, as omega/phi/kappa."""
+    import synthetic_bundle as sb
+    from opensfm_tpu_torch import geo
+    from opensfm_tpu_torch.dataset import DataSet
+    from opensfm_tpu_torch.geometry import angles
+    from opensfm_tpu_torch.geometry.pose import Pose
+
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(match_path, out, ignore=shutil.ignore_patterns(
+        "reconstruction*.json", "reports", "reference_lla.json"))
+    data = DataSet(out)
+    shots, _ = sb.matching_scene(n_shots, n_points, seed=seed)
+    ref = geo.TopocentricConverter(*sb.GPS_ORIGIN)
+    for i, image in enumerate(data.images()):
+        pose = Pose(shots[i, :3], shots[i, 3:])
+        noise = Pose(np.radians(rng.normal(0, PRIOR_ANGLE_NOISE, 3)))
+        R = noise.get_rotation_matrix() @ pose.get_rotation_matrix()
+        opk = angles.opk_from_rotation(R)
+        check(np.abs(angles.rotation_from_opk(*opk) - R).max() < 1e-9,
+              "the metadata attitude survives omega/phi/kappa")
+        exif = data.load_exif(image)
+        lat, lon, alt = ref.to_lla(
+            *(pose.get_origin() + rng.normal(0, PRIOR_GPS_NOISE, 3)))
+        exif["gps"] = {"latitude": lat, "longitude": lon, "altitude": alt,
+                       "dop": PRIOR_GPS_NOISE}
+        exif["opk"] = {"omega": float(np.degrees(opk[0])),
+                       "phi": float(np.degrees(opk[1])),
+                       "kappa": float(np.degrees(opk[2])), "accuracy": 0.1}
+        data.save_exif(image, exif)
+    return data
+
+
+def run_merge_and_algorithms(match_path, feature_points, n_shots, n_points,
+                             seed, dev="cuda"):
+    """Phase 16: phase 14's reconstruction split into a thin-bridge pair as
+    tests/test_reconstruction_incremental.py:167-236 splits its own, and
+    reunited by merge_two_reconstructions on the card within that test's
+    bounds; then `reconstruct --algorithm triangulation` and
+    `reconstruct_from_prior` (on the triangulation's reconstruction)
+    through the command runner on a copy whose metadata poses are the
+    truth plus noise, graded against the truth.  Wall times, the bundles'
+    LM routes and the bundle kernels' (rows 1-5) launches for each; each
+    must launch some, on whichever route its problems take."""
+    import synthetic_bundle as sb
+    from opensfm_tpu_torch import reconstruction as R
+    from opensfm_tpu_torch.align import apply_similarity
+    from opensfm_tpu_torch.commands import command_runner, opensfm_commands
+    from opensfm_tpu_torch.dataset import DataSet
+
+    shots_true, points_true = sb.matching_scene(n_shots, n_points, seed=seed)
+    out = {}
+    data = DataSet(match_path)
+    tm = data.load_tracks_manager()
+    rec = data.load_reconstruction()[0]
+    shots = sorted(rec.shots)
+    n = len(shots)
+    r1, r2 = R._copy_reconstruction(rec), R._copy_reconstruction(rec)
+    for s in shots:
+        if s not in shots[: n * 2 // 3]:
+            r1.remove_shot(s)
+        if s not in shots[n // 2:]:
+            r2.remove_shot(s)
+    rng = np.random.default_rng(7)
+    apply_similarity(r2, 1.0, np.eye(3), np.array([1.5, -0.9, 0.6]))
+    pids = sorted(r2.points)
+    keep = set(pids[:: max(1, len(pids) // 12)][:12])
+    for pid in pids:
+        if pid not in keep:
+            r2.remove_point(pid)
+    for i, pid in enumerate(sorted(keep)):
+        if i % 3 != 0:  # 8 of 12 scattered, 4 clean
+            r2.points[pid].coordinates = (
+                np.asarray(r2.points[pid].coordinates)
+                + rng.normal(0.0, 3.0, 3))
+    reset_launches()
+    t0 = time.perf_counter()
+    merged = R.merge_two_reconstructions(r1, r2, data.config,
+                                         tracks_manager=tm, data=data,
+                                         device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    check(len(merged) == 1 and set(merged[0].shots) == set(shots),
+          "the seeded merge reunites the thin-bridge pair")
+    grade = sb.grade_reconstruction(merged, tm, feature_points, shots_true,
+                                    points_true)
+    grade["rotation_rms"] = _rotation_rms(merged[0], shots, shots_true)
+    grade["settle_moved_m"] = merged[0].merge_settle_moved
+    out["merge"] = dict(wall_s=wall, grade=grade, launches={
+        k: counts[k] for k in BA_KERNELS})
+    log(f"  seeded merge of {n * 2 // 3} + {n - n // 2} shots: "
+        f"{json.dumps(out['merge'])}")
+    check(grade["centre_rms"] < MERGE_MAX_CENTRE_RMS,
+          f"merged centre RMS {grade['centre_rms']:.3e} m")
+    check(grade["rotation_rms"] < MERGE_MAX_ROTATION_RMS,
+          f"merged rotation RMS {grade['rotation_rms']:.3e} rad")
+    check(sum(counts[k] for k in BA_KERNELS) > 0,
+          "the bundle kernels launched in the merge")
+
+    prior_path = os.path.join(WORK, "prior")
+    _prior_dataset(match_path, prior_path, n_shots, n_points, seed,
+                   np.random.default_rng(3))
+    # The triangulation starts from the metadata poses; reconstruct_from_
+    # prior then retriangulates and bundles its reconstruction.json.
+    for name, argv, output in (
+            ("triangulation", ["reconstruct", prior_path, "--algorithm",
+                               "triangulation"], "reconstruction.json"),
+            ("prior", ["reconstruct_from_prior", prior_path],
+             "reconstruction.prior.json")):
+        reset_launches()
+        t0 = time.perf_counter()
+        report = command_runner(opensfm_commands,
+                                argv=argv + ["--device", dev])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        recs = DataSet(prior_path).load_reconstruction(output)
+        grade = sb.grade_reconstruction(recs, tm, feature_points, shots_true,
+                                        points_true)
+        bundles = [report["bundle"]] if "bundle" in report else [
+            b for step in report["steps"] for k, b in step.items()
+            if k.startswith("bundle_")] + [report["bundle_final"]]
+        out[name] = dict(wall_s=wall, grade=grade, launches={
+            k: counts[k] for k in BA_KERNELS}, routes=sorted(
+                {b["route"] for b in bundles}))
+        log(f"  {name}: {json.dumps(out[name])}")
+        check(grade["reconstructions"] == 1 and grade["shots"] == n_shots,
+              f"{name}: all {n_shots} shots")
+        check(grade["centre_rms"] < PRIOR_MAX_CENTRE_RMS,
+              f"{name}: centre RMS {grade['centre_rms']:.3e} m")
+        check(grade["point_rms"] < PRIOR_MAX_POINT_RMS,
+              f"{name}: point RMS {grade['point_rms']:.3e} m")
+        check(grade["reprojection_rms"] < PRIOR_MAX_REPROJ_RMS * sb.NOISE,
+              f"{name}: reprojection RMS {grade['reprojection_rms']:.3e}")
+        check(sum(counts[k] for k in BA_KERNELS) > 0,
+              f"the bundle kernels launched in {name}")
+    return out
+
+
+# --------------------------------------------------------------------------
 # The dense-assembly ablation profiler (row 7)
 # --------------------------------------------------------------------------
 
@@ -1967,6 +2350,19 @@ def main() -> int:
     recon = run_reconstruct(match_path, tracks)
     log(f"  done in {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 15: from images, {IMAGE_VIEWS} views of {IMAGE_W} x "
+        f"{IMAGE_H} at the default config ({card})")
+    t0 = time.perf_counter()
+    chain = run_image_chain()
+    log(f"  done in {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 16: merge, triangulation and reconstruct_from_prior on "
+        f"phase 14's {MATCH_SHOTS} images ({card})")
+    t0 = time.perf_counter()
+    algos = run_merge_and_algorithms(match_path, tracks, MATCH_SHOTS,
+                                     MATCH_POINTS, 5)
+    log(f"  done in {time.perf_counter() - t0:.1f} s")
+
     paths = {name: ("bundle command 256x32768xK=8, f64", counts)
              for name in ("fused_residual_jacobian", "fused_cost")}
     paths.update({name: ("bundle_adjust dense 64x8192, f64", dense_counts)
@@ -2012,7 +2408,8 @@ def main() -> int:
                 launches_words=words_launches, words_command_s=words_wall,
                 words_command_stage_s=words_stages, command_s=match_wall,
                 command_stage_s=stages, precision=scores[0],
-                recall=scores[1], **pair_profile,
+                recall=scores[1], launches_image_chain=chain["launches"][name],
+                **pair_profile,
             ))
             continue
         f64, f32 = rows[name]["float64"], rows[name]["float32"]
@@ -2028,6 +2425,9 @@ def main() -> int:
             bound_ms_f32=f32["bound_ms"], library_ms_f32=f32["library_ms"],
         ))
         kernels[-1]["launches_reconstruct"] = recon["launches"][name]
+        kernels[-1]["launches_image_chain"] = chain["launches"][name]
+        kernels[-1].update({f"launches_{k}": v["launches"][name]
+                            for k, v in algos.items()})
         if name == "fused_schur_assembly":
             kernels[-1].update(sub_kernel_ms=schur_split,
                                product_step_torch_mm_ms=product_mm_ms)
@@ -2038,6 +2438,9 @@ def main() -> int:
                                ptxas=ptx)
     print(json.dumps({"reconstruct": {k: v for k, v in recon.items()
                                       if k != "launches"}}), flush=True)
+    print(json.dumps({"image_chain": {k: v for k, v in chain.items()
+                                      if k != "launches"}}), flush=True)
+    print(json.dumps({"merge_and_algorithms": algos}), flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

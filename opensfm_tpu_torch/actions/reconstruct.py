@@ -11,8 +11,9 @@ def run_dataset(data, algorithm: str = "incremental",
                 device=None) -> Dict[str, Any]:
     """Reconstruct `data` from its tracks on `device` (CUDA unless told
     otherwise), save `reconstruction.json` and `reports/reconstruction.json`
-    and return the report.  The triangulation algorithm is not ported and
-    raises NotImplementedError."""
+    and return the report.  `algorithm` is "incremental" (growth from the
+    best pair, partials merged) or "triangulation" (poses from the
+    metadata, retriangulated and bundled)."""
     tracks_manager = data.load_tracks_manager()
     if algorithm == "incremental":
         report, reconstructions = reconstruction.incremental_reconstruction(

@@ -1,7 +1,8 @@
 """CLI commands (argparse shims over actions; reference
-`opensfm/commands/__init__.py:33-57`).  The port registers `match_features`,
-`create_tracks`, `reconstruct` and `bundle` so far; `reconstruct_from_prior`
-and `extend_reconstruction` are registered and raise NotImplementedError."""
+`opensfm/commands/__init__.py:33-57`).  The port registers the stages from
+images to a reconstruction: `extract_metadata`, `detect_features`,
+`match_features`, `create_tracks`, `reconstruct`, `reconstruct_from_prior`,
+`extend_reconstruction` and `bundle`."""
 
 from opensfm_tpu_torch.commands.command import CommandBase  # noqa: F401
 from opensfm_tpu_torch.commands.command_runner import command_runner  # noqa: F401
@@ -11,12 +12,15 @@ def opensfm_commands():
     from opensfm_tpu_torch.commands import (
         bundle,
         create_tracks,
+        detect_features,
         extend_reconstruction,
+        extract_metadata,
         match_features,
         reconstruct,
         reconstruct_from_prior,
     )
 
-    return [match_features.Command(), create_tracks.Command(),
+    return [extract_metadata.Command(), detect_features.Command(),
+            match_features.Command(), create_tracks.Command(),
             reconstruct.Command(), reconstruct_from_prior.Command(),
             bundle.Command(), extend_reconstruction.Command()]

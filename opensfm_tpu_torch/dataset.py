@@ -28,12 +28,11 @@ logger = logging.getLogger(__name__)
 
 
 def _image_files(directory: str) -> Dict[str, str]:
-    extensions = {"jpg", "jpeg", "png", "tif", "tiff", "pgm", "pnm", "gif", "bmp"}
     files = {}
     if os.path.isdir(directory):
         for entry in os.listdir(directory):
             ext = entry.split(".")[-1].lower()
-            if ext in extensions:
+            if ext in io.IMAGE_EXTENSIONS:
                 files[entry] = os.path.join(directory, entry)
     return files
 
@@ -78,52 +77,35 @@ class DataSet(DataSetBase):
 
     def load_image(self, image: str, unchanged: bool = False, anydepth: bool = False,
                    grayscale: bool = False) -> np.ndarray:
-        import cv2
-
-        flags = cv2.IMREAD_COLOR
-        if grayscale:
-            flags = cv2.IMREAD_GRAYSCALE
-        elif unchanged:
-            flags = cv2.IMREAD_UNCHANGED
-        img = cv2.imread(self.image_file(image), flags)
-        if img is None:
-            raise IOError(f"Unable to load image {image}")
-        if not grayscale and img.ndim == 3:
-            img = img[:, :, ::-1]  # BGR -> RGB
-        return img
+        """The image's pixels (RGB unless `grayscale` or `unchanged`):
+        PNG and PGM/PPM decoded by the port, other formats through cv2 or
+        PIL (`io.imread`)."""
+        return io.imread(self.image_file(image), grayscale=grayscale,
+                         unchanged=unchanged, anydepth=anydepth)
 
     def image_size(self, image: str) -> Tuple[int, int]:
-        from PIL import Image
-
-        with Image.open(self.image_file(image)) as img:
-            w, h = img.size
-        return h, w
+        return io.image_size(self.image_file(image))
 
     # -- masks / segmentation -------------------------------------------------
-    def load_mask(self, image: str) -> Optional[np.ndarray]:
-        import cv2
-
-        path = self._fp("masks", image + ".png")
+    def _grey_png(self, folder: str, image: str) -> Optional[np.ndarray]:
+        path = self._fp(folder, image + ".png")
         if os.path.isfile(path):
-            mask = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-            return mask
+            return io.imread(path, grayscale=True)
         return None
+
+    def load_mask(self, image: str) -> Optional[np.ndarray]:
+        return self._grey_png("masks", image)
+
+    def load_features_mask(self, image: str, points: np.ndarray) -> np.ndarray:
+        from opensfm_tpu_torch import masking
+
+        return masking.load_features_mask(self, image, points)
 
     def load_segmentation(self, image: str) -> Optional[np.ndarray]:
-        import cv2
-
-        path = self._fp("segmentations", image + ".png")
-        if os.path.isfile(path):
-            return cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-        return None
+        return self._grey_png("segmentations", image)
 
     def load_instances(self, image: str) -> Optional[np.ndarray]:
-        import cv2
-
-        path = self._fp("instances", image + ".png")
-        if os.path.isfile(path):
-            return cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-        return None
+        return self._grey_png("instances", image)
 
     def segmentation_labels(self) -> List[Any]:
         return []
@@ -143,6 +125,15 @@ class DataSet(DataSetBase):
         self._ensure_dir("exif")
         with open(self._exif_path(image), "w") as f:
             io.json_dump(data, f)
+
+    def extract_exif(self, image: str) -> Dict[str, Any]:
+        from opensfm_tpu_torch import exif as exif_mod
+
+        with open(self.image_file(image), "rb") as f:
+            return exif_mod.extract_exif_from_file(
+                f, lambda: self.image_size(image),
+                self.config["use_exif_size"], name=image,
+            )
 
     # -- camera models --------------------------------------------------------
     def load_camera_models(self) -> Dict[str, Any]:

@@ -654,6 +654,279 @@ def point_cloud_from_ply(fp: TextIO) -> Tuple[np.ndarray, np.ndarray, np.ndarray
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Images: PNG and PGM/PPM decoded here, other formats through cv2 or PIL
+# ---------------------------------------------------------------------------
+
+IMAGE_EXTENSIONS = {"jpg", "jpeg", "png", "tif", "tiff", "pgm", "pnm", "gif",
+                    "bmp"}
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
+# Grey from RGB as cv2.imread(..., IMREAD_GRAYSCALE) gives it: libpng's
+# rgb_to_gray (15-bit weights, truncated) for PNG, and OpenCV's 14-bit
+# rounded weights (icvCvt_BGR2Gray_8u) for PPM.
+_PNG_GREY = (9797, 19234, 3737, 15, 0)
+_CV_GREY = (4899, 9617, 1868, 14, 1 << 13)
+
+
+class UnsupportedImage(ValueError):
+    """An image variant the port's own decoders do not read."""
+
+
+def png_chunks(data: bytes):
+    """(type, payload) of each chunk of a PNG file's bytes."""
+    if not data.startswith(PNG_SIGNATURE):
+        raise UnsupportedImage("not a PNG file")
+    pos = len(PNG_SIGNATURE)
+    while pos + 8 <= len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        kind = data[pos + 4:pos + 8]
+        yield kind, data[pos + 8:pos + 8 + n]
+        if kind == b"IEND":
+            return
+        pos += 12 + n
+
+
+def _png_header(data: bytes):
+    kind, ihdr = next(png_chunks(data))
+    if kind != b"IHDR":
+        raise UnsupportedImage("PNG without IHDR")
+    w, h = int.from_bytes(ihdr[0:4], "big"), int.from_bytes(ihdr[4:8], "big")
+    return w, h, ihdr[8], ihdr[9], ihdr[12]
+
+
+def _unfilter_rows(raw: np.ndarray, height: int, stride: int,
+                   bpp: int) -> np.ndarray:
+    """Undo the PNG row filters (None, Sub, Up, Average, Paeth) of `raw`
+    ([height, 1 + stride] bytes): the native core's loop when its library
+    is available, else this one (Sub and Up vectorised per row)."""
+    from opensfm_tpu_torch import native
+
+    if native.available():
+        return native.png_unfilter(raw, height, stride, bpp)
+    out = np.zeros((height + 1, stride), dtype=np.uint8)  # row 0: zeros
+    for y in range(height):
+        f, line, up = int(raw[y, 0]), raw[y, 1:], out[y]
+        if f == 0:
+            row = line
+        elif f == 1:
+            row = (np.cumsum(line.reshape(-1, bpp).astype(np.int64), axis=0)
+                   .reshape(-1) & 255).astype(np.uint8)
+        elif f == 2:
+            row = line + up
+        elif f in (3, 4):
+            cur = bytearray(line.tobytes())
+            prev = up.tobytes()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = prev[i]
+                if f == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = prev[i - bpp] if i >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (
+                        b if pb <= pc else c)
+                cur[i] = (cur[i] + pred) & 255
+            row = np.frombuffer(bytes(cur), dtype=np.uint8)
+        else:
+            raise ValueError(f"bad PNG row filter {f}")
+        out[y + 1] = row
+    return out[1:]
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """Pixels of an 8-bit non-interlaced PNG (grey, grey+alpha, RGB, RGBA)
+    as stored: [H, W] for grey, else [H, W, C] in file order (R, G, B, A).
+    Raises UnsupportedImage for other variants (palette, 16-bit,
+    interlaced)."""
+    import zlib
+
+    w, h, depth, ctype, interlace = _png_header(data)
+    if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
+        raise UnsupportedImage(
+            f"PNG of bit depth {depth}, colour type {ctype}, interlace "
+            f"{interlace}: the port decodes 8-bit non-interlaced grey, "
+            f"grey+alpha, RGB and RGBA")
+    c = _PNG_CHANNELS[ctype]
+    idat = b"".join(p for k, p in png_chunks(data) if k == b"IDAT")
+    raw = np.frombuffer(zlib.decompress(idat), dtype=np.uint8)
+    stride = w * c
+    raw = raw[:h * (stride + 1)].reshape(h, stride + 1)
+    pix = _unfilter_rows(raw, h, stride, c)
+    return pix.reshape(h, w) if c == 1 else pix.reshape(h, w, c)
+
+
+def _pnm_header(data: bytes):
+    """(magic, width, height, maxval, offset of the pixels) of a binary
+    PGM/PPM."""
+    fields, pos = [], 0
+    while len(fields) < 4:
+        while pos < len(data) and data[pos:pos + 1].isspace():
+            pos += 1
+        if data[pos:pos + 1] == b"#":
+            pos = data.index(b"\n", pos) + 1
+            continue
+        end = pos
+        while end < len(data) and not data[end:end + 1].isspace():
+            end += 1
+        fields.append(data[pos:end])
+        pos = end
+    magic = fields[0]
+    if magic not in (b"P5", b"P6"):
+        raise UnsupportedImage(f"PNM {magic!r}: the port decodes P5 and P6")
+    return magic, int(fields[1]), int(fields[2]), int(fields[3]), pos + 1
+
+
+def decode_pnm(data: bytes) -> np.ndarray:
+    """Pixels of an 8-bit binary PGM (P5, [H, W]) or PPM (P6, [H, W, 3])."""
+    magic, w, h, maxval, off = _pnm_header(data)
+    if maxval > 255:
+        raise UnsupportedImage(f"PNM of maxval {maxval}: the port decodes "
+                               "8-bit PNM")
+    c = 1 if magic == b"P5" else 3
+    pix = np.frombuffer(data, dtype=np.uint8, count=w * h * c, offset=off)
+    return pix.reshape(h, w) if c == 1 else pix.reshape(h, w, c)
+
+
+def _grey(rgb: np.ndarray, weights) -> np.ndarray:
+    wr, wg, wb, shift, rnd = weights
+    x = rgb.astype(np.int64)
+    return ((wr * x[..., 0] + wg * x[..., 1] + wb * x[..., 2] + rnd)
+            >> shift).astype(np.uint8)
+
+
+def _library_imread(path: str, grayscale: bool, unchanged: bool,
+                    anydepth: bool = False) -> np.ndarray:
+    """Formats the port does not decode itself, through cv2 or else PIL;
+    `anydepth` keeps 16-bit samples (cv2.IMREAD_ANYDEPTH, or PIL's
+    16-bit grey modes) instead of reducing them to 8 bits."""
+    ext = path.rsplit(".", 1)[-1].lower()
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        flags = (cv2.IMREAD_GRAYSCALE if grayscale else
+                 cv2.IMREAD_UNCHANGED if unchanged else cv2.IMREAD_COLOR)
+        if anydepth:
+            flags |= cv2.IMREAD_ANYDEPTH
+        image = cv2.imread(path, flags)
+        if image is None:
+            raise IOError(f"Unable to load image {path}")
+        if image.ndim == 3 and image.shape[2] >= 3:
+            image = image.copy()
+            image[..., :3] = image[..., [2, 1, 0]]  # BGR -> RGB
+        return image
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ImportError(
+            f"reading {ext.upper()} images needs cv2 (opencv-python) or PIL "
+            f"(Pillow), and neither is installed; the port decodes PNG and "
+            f"PGM/PPM itself: {path}") from None
+    with Image.open(path) as img:
+        if anydepth and img.mode.startswith("I;16"):
+            return np.asarray(img).astype(np.uint16)
+        if grayscale:
+            img = img.convert("L")
+        elif not unchanged and img.mode != "RGB":
+            img = img.convert("RGB")
+        return np.asarray(img).copy()
+
+
+def imread(path: str, grayscale: bool = False, unchanged: bool = False,
+           anydepth: bool = False) -> np.ndarray:
+    """An image as uint8 pixels, as cv2.imread gives them with RGB order:
+    [H, W, 3] RGB by default (grey replicated, alpha dropped), [H, W] with
+    `grayscale`, the stored channels with `unchanged` (grey+alpha as four
+    channels, as OpenCV gives it).  PNG and binary
+    PGM/PPM are decoded here; other formats need cv2 or PIL, and so do
+    16-bit PNGs, which `anydepth` keeps at 16 bits as cv2 does with
+    IMREAD_ANYDEPTH."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        if data.startswith(PNG_SIGNATURE):
+            pix, weights = decode_png(data), _PNG_GREY
+        elif data[:2] in (b"P5", b"P6"):
+            pix, weights = decode_pnm(data), _CV_GREY
+        else:
+            return _library_imread(path, grayscale, unchanged, anydepth)
+    except UnsupportedImage:
+        return _library_imread(path, grayscale, unchanged, anydepth)
+    if unchanged:
+        if pix.ndim == 3 and pix.shape[2] == 2:  # grey+alpha -> GGGA
+            return np.ascontiguousarray(pix[..., [0, 0, 0, 1]])
+        return pix.copy()
+    if pix.ndim == 2:
+        grey = pix
+    elif pix.shape[2] == 2:
+        grey = pix[..., 0]
+    else:
+        if not grayscale:
+            return np.ascontiguousarray(pix[..., :3])
+        grey = _grey(pix, weights)
+    if grayscale:
+        return np.ascontiguousarray(grey)
+    return np.repeat(grey[:, :, None], 3, axis=2)
+
+
+def _jpeg_size(data: bytes) -> Optional[Tuple[int, int]]:
+    """(height, width) from a JPEG's first SOF marker."""
+    pos = 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            return None
+        marker = data[pos + 1]
+        if marker == 0xFF:
+            pos += 1
+            continue
+        n = int.from_bytes(data[pos + 2:pos + 4], "big")
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            return (int.from_bytes(data[pos + 5:pos + 7], "big"),
+                    int.from_bytes(data[pos + 7:pos + 9], "big"))
+        pos += 2 + n
+    return None
+
+
+def image_size_from_header(head: bytes) -> Optional[Tuple[int, int]]:
+    """(height, width) read from the first bytes of a PNG, PGM/PPM or JPEG
+    file; None for other formats."""
+    if head.startswith(PNG_SIGNATURE):
+        w, h = _png_header(head[:64])[:2]
+        return h, w
+    if head[:2] in (b"P5", b"P6"):
+        _, w, h, _, _ = _pnm_header(head)
+        return h, w
+    if head[:2] == b"\xff\xd8":
+        return _jpeg_size(head)
+    return None
+
+
+def image_size(path: str) -> Tuple[int, int]:
+    """(height, width) of an image from its header (PNG, PGM/PPM and JPEG
+    here; other formats through PIL or cv2)."""
+    with open(path, "rb") as f:
+        head = f.read(1 << 16)
+        size = image_size_from_header(head)
+        if size is None and head[:2] == b"\xff\xd8":
+            f.seek(0)
+            size = _jpeg_size(f.read())
+    if size is not None:
+        return size
+    try:
+        from PIL import Image
+
+        with Image.open(path) as img:
+            w, h = img.size
+        return h, w
+    except ImportError:
+        image = _library_imread(path, True, False)
+        return image.shape[0], image.shape[1]
+
+
 class IoFilesystemBase:
     """Abstract filesystem interface for `DataSet` storage backends."""
 
@@ -754,21 +1027,8 @@ class IoFilesystemDefault(IoFilesystemBase):
 
     def imread(self, path: str, grayscale: bool = False,
                unchanged: bool = False, anydepth: bool = False) -> np.ndarray:
-        import cv2
-        if grayscale:
-            flags = cv2.IMREAD_GRAYSCALE
-        elif unchanged:
-            flags = cv2.IMREAD_UNCHANGED
-        else:
-            flags = cv2.IMREAD_COLOR
-        if anydepth:
-            flags |= cv2.IMREAD_ANYDEPTH
-        image = cv2.imread(path, flags)
-        if image is None:
-            raise IOError(f"Unable to load image {path}")
-        if image.ndim == 3 and image.shape[2] >= 3:
-            image[..., :3] = image[..., [2, 1, 0]]  # BGR -> RGB
-        return image
+        return imread(path, grayscale=grayscale, unchanged=unchanged,
+                      anydepth=anydepth)
 
     def imwrite(self, path: str, image: np.ndarray) -> None:
         import cv2
@@ -779,8 +1039,7 @@ class IoFilesystemDefault(IoFilesystemBase):
             raise IOError(f"Unable to write image {path}")
 
     def image_size(self, path: str) -> Tuple[int, int]:
-        image = self.imread(path, grayscale=True)
-        return image.shape[0], image.shape[1]
+        return image_size(path)
 
     def timestamp(self, path: str) -> float:
         import os

@@ -1,4 +1,5 @@
-"""ctypes bindings for the native runtime core (tracks codec + union-find).
+"""ctypes bindings for the native runtime core (tracks codec + union-find,
+and the PNG decoder's row unfiltering).
 
 Port of `opensfm_tpu.native`: the same C ABI (`tracks_core.cpp`, this
 package's own copy), compiled with g++ at first use instead of at import,
@@ -89,6 +90,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tc_serialize.restype = ctypes.c_void_p
     lib.tc_free_buf.argtypes = [ctypes.c_void_p]
     lib.tc_free_buf.restype = None
+
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.png_unfilter.argtypes = [u8p, c_ll, c_ll, c_ll, u8p]
+    lib.png_unfilter.restype = ctypes.c_int
     return lib
 
 
@@ -205,3 +210,19 @@ def serialize_tracks(
         return ctypes.string_at(buf, out_len.value).decode("utf-8")
     finally:
         lib.tc_free_buf(buf)
+
+
+def png_unfilter(raw: np.ndarray, height: int, stride: int,
+                 bpp: int) -> np.ndarray:
+    """Pixel bytes [height, stride] of PNG scanlines `raw` ([height,
+    1 + stride], each led by its filter byte) of `bpp`-byte pixels."""
+    lib = _loaded()
+    raw = np.ascontiguousarray(raw, dtype=np.uint8)
+    if raw.shape != (height, stride + 1) or bpp < 1:
+        raise NativeError(f"png_unfilter: scanlines of shape {raw.shape}, "
+                          f"not ({height}, {stride + 1})")
+    out = np.empty((height, stride), dtype=np.uint8)
+    if lib.png_unfilter(_as_ptr(raw, ctypes.c_uint8), height, stride, bpp,
+                        _as_ptr(out, ctypes.c_uint8)):
+        raise NativeError("png_unfilter: unknown row filter")
+    return out

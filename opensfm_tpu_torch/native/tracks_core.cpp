@@ -12,6 +12,8 @@
 //   - uf_components: path-halving union-find over integer edge lists, used
 //     by tracking.create_tracks_manager to link pairwise matches into
 //     multi-view tracks.
+//   - png_unfilter: the PNG row filters' inverse (io.decode_png), whose
+//     Average and Paeth filters run left to right along each row.
 //
 // Build: g++ -O2 -std=c++17 -shared -fPIC (see opensfm_tpu_torch/native/__init__.py).
 
@@ -334,5 +336,42 @@ char* tc_serialize(const char* shot_names, long long n_shots,
 }
 
 void tc_free_buf(char* buf) { std::free(buf); }
+
+// Undo the PNG row filters: `raw` holds `height` rows of 1 filter byte and
+// `stride` bytes of `bpp`-byte pixels; `out` gets the height x stride
+// pixel bytes.  Returns 0, or -1 on an unknown filter type.
+int png_unfilter(const uint8_t* raw, long long height, long long stride,
+                 long long bpp, uint8_t* out) {
+  std::vector<uint8_t> zeros(static_cast<size_t>(stride), 0);
+  for (long long y = 0; y < height; ++y) {
+    const uint8_t* line = raw + y * (stride + 1);
+    const uint8_t f = line[0];
+    ++line;
+    uint8_t* cur = out + y * stride;
+    const uint8_t* up = y ? out + (y - 1) * stride : zeros.data();
+    for (long long i = 0; i < stride; ++i) {
+      const int a = i >= bpp ? cur[i - bpp] : 0;
+      const int b = up[i];
+      int pred;
+      switch (f) {
+        case 0: pred = 0; break;
+        case 1: pred = a; break;
+        case 2: pred = b; break;
+        case 3: pred = (a + b) >> 1; break;
+        case 4: {
+          const int c = i >= bpp ? up[i - bpp] : 0;
+          const int p = a + b - c;
+          const int pa = std::abs(p - a), pb = std::abs(p - b),
+                    pc = std::abs(p - c);
+          pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          break;
+        }
+        default: return -1;
+      }
+      cur[i] = static_cast<uint8_t>(line[i] + pred);
+    }
+  }
+  return 0;
+}
 
 }  // extern "C"

@@ -18,24 +18,27 @@ computation on `device` (CUDA unless told otherwise):
 
 The ROBUST triangulation draws its slot pairs from a seeded CPU
 `torch.Generator` (or takes them injected), not from the global NumPy RNG.
-Not ported, and raising NotImplementedError where a run needs them:
-merging partial reconstructions (`merge_partial_reconstructions`), saving
-partial reconstructions, `triangulation_reconstruction` and
-`reconstruct_from_prior`.
+Also here: the merge of partial reconstructions (similarity and absolute
+pose RANSAC through the batched engine, bundles through `ba.lm`), partial
+saves, `triangulation_reconstruction` and `reconstruct_from_prior`.
 """
 
 from __future__ import annotations
 
+import copy
+import datetime
 import logging
 import time
 from collections import defaultdict
+from itertools import combinations
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
+from opensfm_tpu_torch import io as io_mod
 from opensfm_tpu_torch import multiview, pymap, resolve_device, rig, tracking, types
-from opensfm_tpu_torch.align import align_reconstruction
+from opensfm_tpu_torch.align import align_reconstruction, apply_similarity
 from opensfm_tpu_torch.ba import problem as ba_problem
 from opensfm_tpu_torch.geometry import essential as ess
 from opensfm_tpu_torch.geometry import triangulation as tri
@@ -850,6 +853,272 @@ def remove_outliers(reconstruction, config, points=None) -> int:
     return len(outliers)
 
 
+# ---------------------------------------------------------------------------
+# Reconstruction merging
+# ---------------------------------------------------------------------------
+
+
+def shot_lla_and_compass(shot, reference) -> Tuple[float, float, float, float]:
+    """Lat, lon, alt and compass angle of a reconstructed shot
+    (reconstruction.py:1293-1302)."""
+    topo = shot.pose.get_origin()
+    lat, lon, alt = reference.to_lla(*topo)
+    dz = shot.pose.get_R_cam_to_world()[:, 2]
+    angle = np.rad2deg(np.arctan2(dz[0], dz[1]))
+    angle = (angle + 360) % 360
+    return lat, lon, alt, angle
+
+
+def corresponding_tracks(tracks1, tracks2) -> List[Tuple[str, str]]:
+    features1 = {obs.id: t1 for t1, obs in tracks1.items()}
+    corresponding = []
+    for t2, obs in tracks2.items():
+        if obs.id in features1:
+            corresponding.append((features1[obs.id], t2))
+    return corresponding
+
+
+def compute_common_tracks(
+    reconstruction1, reconstruction2, tracks_manager1, tracks_manager2
+) -> List[Tuple[str, str]]:
+    common_tracks = set()
+    common_images = set(reconstruction1.shots) & set(reconstruction2.shots)
+    all1 = set(tracks_manager1.get_shot_ids())
+    all2 = set(tracks_manager2.get_shot_ids())
+    for image in common_images:
+        if image not in all1 or image not in all2:
+            continue
+        at1 = tracks_manager1.get_shot_observations(image)
+        at2 = tracks_manager2.get_shot_observations(image)
+        for t1, t2 in corresponding_tracks(at1, at2):
+            if t1 in reconstruction1.points and t2 in reconstruction2.points:
+                common_tracks.add((t1, t2))
+    return list(common_tracks)
+
+
+def align_two_reconstruction(r1, r2, common_tracks, threshold, device=None):
+    """Similarity T with r2 = T . r1 from common tracks
+    (reconstruction.py:1329-1354), by the batched engine's similarity
+    RANSAC on `device`."""
+    if len(common_tracks) > 6:
+        p1 = np.array([r1.points[t[0]].coordinates for t in common_tracks])
+        p2 = np.array([r2.points[t[1]].coordinates for t in common_tracks])
+        T, inliers = multiview.fit_similarity_transform(
+            p1, p2, max_iterations=100, threshold=threshold, device=device
+        )
+        if len(inliers) > 0:
+            return True, T, list(inliers)
+    return False, None, []
+
+
+def resect_reconstruction(
+    reconstruction1, reconstruction2, tracks_manager1, tracks_manager2,
+    threshold, min_inliers, device=None,
+):
+    """Similarity between two reconstructions from their common tracks
+    (reconstruction.py:801-832)."""
+    common_tracks = compute_common_tracks(
+        reconstruction1, reconstruction2, tracks_manager1, tracks_manager2
+    )
+    worked, similarity, inliers = align_two_reconstruction(
+        reconstruction1, reconstruction2, common_tracks, threshold,
+        device=device,
+    )
+    if not worked or similarity is None or len(inliers) < min_inliers:
+        return False, np.ones((4, 4)), []
+    inliers = [common_tracks[i] for i in inliers]
+    return True, similarity, inliers
+
+
+def _copy_reconstruction(rec):
+    """Deep copy via the JSON codec (keeps a merge attempt free of side
+    effects, so a failed validation can be discarded)."""
+    out = io_mod.reconstruction_from_json(io_mod.reconstruction_to_json(rec))
+    out.reference = rec.reference
+    return out
+
+
+def _reresect_shots(r, shot_ids, tracks_manager, data, config, device=None):
+    """Re-estimate the poses of `shot_ids` against the current point set
+    with P3P-RANSAC (one batched computation for all of them), keeping a
+    new pose only when it explains more observations than the existing
+    one.  Shots of multi-shot rig instances are skipped (their pose is the
+    instance's)."""
+    threshold = config["resection_threshold"]
+    gathered = {}
+    for shot_id in sorted(shot_ids):
+        shot = r.shots.get(shot_id)
+        if shot is None or len(shot.rig_instance.shots) > 1:
+            continue
+        g, _ = _resect_gather(data, tracks_manager, r, shot_id)
+        if g is not None:
+            gathered[shot_id] = g
+    if not gathered:
+        return 0
+    results = multiview.absolute_pose_ransac_batched(
+        [g[0] for g in gathered.values()], [g[1] for g in gathered.values()],
+        threshold, 1000, 0.999, device=device)
+
+    def ninl(R, t, bs, Xs):
+        pr = Xs @ R.T + t
+        pr = pr / np.maximum(np.linalg.norm(pr, axis=1, keepdims=True), 1e-12)
+        return int((np.linalg.norm(pr - bs, axis=1) < threshold).sum())
+
+    improved = 0
+    for (shot_id, (bs, Xs, _)), (T, _) in zip(gathered.items(), results):
+        pose = r.shots[shot_id].pose
+        if ninl(T[:, :3], T[:, 3], bs, Xs) > ninl(
+                pose.get_rotation_matrix(), pose.translation, bs, Xs):
+            r.shots[shot_id].pose = _pose_from_Rt(T[:, :3], T[:, 3])
+            improved += 1
+    if improved:
+        logger.info("Post-merge re-resection improved %d shot poses", improved)
+    return improved
+
+
+def _union_into(a, b):
+    for shot in a.shots.values():
+        if shot.id not in b.shots:
+            b.add_shot(shot)
+    for point in a.points.values():
+        if point.id not in b.points:
+            b.add_point(point)
+    return b
+
+
+def merge_two_reconstructions(r1, r2, config, threshold=1.0,
+                              tracks_manager=None, data=None, gcp=None,
+                              device=None):
+    """Merge two reconstructions with common track ids
+    (reconstruction.py:1356-1380), as the JAX package does, in two regimes:
+
+    - >= 10 similarity inliers: apply the similarity and merge directly.
+    - fewer, with a tracks manager to consolidate with (a thin bridge
+      between the parts): seed with the median translation of the common
+      points (then the similarity RANSAC's transform when it found >= 3
+      inliers), union the maps, retriangulate and bundle with a widened
+      loss first and the configured one twice more, and accept when at
+      least 10 points link shots of both parts (validated on copies: on
+      rejection the originals come back untouched).  An accepted merge is
+      re-resected shot by shot (keep-if-better) and settled by
+      retriangulate + bundle rounds until no shot origin moves 5 mm (at
+      most 5 rounds); the last displacement is `merge_settle_moved`."""
+    common_ids = sorted(set(r1.points) & set(r2.points))
+    common_tracks = [(t, t) for t in common_ids]
+    worked, T, inliers = align_two_reconstruction(r1, r2, common_tracks,
+                                                  threshold, device=device)
+    strict_inliers = len(inliers or []) if worked else 0
+    if strict_inliers < 10 and len(common_ids) < 3:
+        return [r1, r2]
+
+    if strict_inliers >= 10:
+        s, A, b_ = multiview.decompose_similarity_transform(T)
+        apply_similarity(r1, s, A, b_)
+        r = _union_into(r1, r2)
+        align_reconstruction(r, [], config, device=device)
+        return [r]
+
+    if tracks_manager is None or data is None:
+        return [r1, r2]
+
+    p1 = np.array([r1.points[t].coordinates for t in common_ids])
+    p2 = np.array([r2.points[t].coordinates for t in common_ids])
+    T_med = np.eye(4)
+    T_med[:3, 3] = np.median(p2 - p1, axis=0)
+    seeds = [("median-translation", T_med)]
+    if worked and T is not None and len(inliers) >= 3:
+        seeds.append(("similarity-ransac", T))
+
+    part1_shots = set(r1.shots)
+    camera_priors = data.load_camera_models()
+    rig_camera_priors = data.load_rig_cameras()
+    gcp = gcp or []
+
+    def consolidate(r, cfg, remove=True):
+        retriangulate(tracks_manager, r, cfg, device=device)
+        align_reconstruction(r, gcp, cfg, device=device)
+        bundle(r, camera_priors, rig_camera_priors, gcp, cfg, device=device)
+        if remove:
+            remove_outliers(r, cfg)
+
+    for seed_name, T_seed in seeds:
+        c1 = _copy_reconstruction(r1)
+        c2 = _copy_reconstruction(r2)
+        s, A, b_ = multiview.decompose_similarity_transform(T_seed)
+        apply_similarity(c1, s, A, b_)
+        r = _union_into(c1, c2)
+        # Graduated consolidation: the seed can be metres off, so the first
+        # bundle runs with a widened loss and no outlier removal.
+        relaxed = dict(config)
+        relaxed["loss_function_threshold"] = (
+            4.0 * float(config.get("loss_function_threshold", 1.0))
+        )
+        consolidate(r, relaxed, remove=False)
+        for _ in range(2):
+            consolidate(r, config)
+        cross = 0
+        for point in r.points.values():
+            obs_shots = set(point.get_observations())
+            if (obs_shots & part1_shots) and (obs_shots - part1_shots):
+                cross += 1
+                if cross >= 10:
+                    break
+        if cross >= 10:
+            logger.info(
+                "Seeded merge accepted (%s seed): %d shots, %d points",
+                seed_name, len(r.shots), len(r.points),
+            )
+            _reresect_shots(r, set(r.shots), tracks_manager, data, config,
+                            device=device)
+            prev = {sid: s.pose.get_origin() for sid, s in r.shots.items()}
+            moved = float("inf")
+            for _ in range(5):
+                consolidate(r, config)
+                cur = {sid: s.pose.get_origin() for sid, s in r.shots.items()}
+                moved = max(float(np.linalg.norm(cur[sid] - prev[sid]))
+                            for sid in cur)
+                prev = cur
+                if moved < 5e-3:
+                    break
+            r.merge_settle_moved = moved
+            return [r]
+        logger.info(
+            "Seeded merge (%s seed) rejected: only %d cross-part points",
+            seed_name, cross,
+        )
+    return [r1, r2]
+
+
+def merge_reconstructions(reconstructions, config, tracks_manager=None,
+                          data=None, gcp=None, device=None):
+    """Greedily merge reconstructions (reconstruction.py:1383-1407)."""
+    kw = dict(tracks_manager=tracks_manager, data=data, gcp=gcp,
+              device=device)
+    remaining = set(range(len(reconstructions)))
+    merged = []
+    num_merge = 0
+    for i, j in combinations(range(len(reconstructions)), 2):
+        if i in remaining and j in remaining:
+            r = merge_two_reconstructions(
+                reconstructions[i], reconstructions[j], config, **kw
+            )
+            if len(r) == 1:
+                remaining -= {i, j}
+                for k in sorted(remaining):
+                    rr = merge_two_reconstructions(
+                        r[0], reconstructions[k], config, **kw
+                    )
+                    if len(rr) == 1:
+                        r = rr
+                        remaining -= {k}
+                merged.append(r[0])
+                num_merge += 1
+    for k in sorted(remaining):
+        merged.append(reconstructions[k])
+    logger.info("Merged %d reconstructions", num_merge)
+    return merged
+
+
 def paint_reconstruction(data, tracks_manager, reconstruction):
     """Color points from their track observations (reconstruction.py:1410)."""
     for k, point in reconstruction.points.items():
@@ -909,11 +1178,17 @@ class ShouldRetriangulate:
 # ---------------------------------------------------------------------------
 
 
-def _no_partial_saves(config) -> None:
-    if config["save_partial_reconstructions"]:
-        raise NotImplementedError(
-            "save_partial_reconstructions is not ported yet: set "
-            "save_partial_reconstructions: no"
+def save_partial_reconstructions(data, tracks_manager, reconstruction) -> None:
+    """With `save_partial_reconstructions` on, paint the growing map and
+    save it as reconstruction.<ISO time>.json (reconstruction.py:1486-1493),
+    once before every resection round."""
+    if data.config["save_partial_reconstructions"]:
+        paint_reconstruction(data, tracks_manager, reconstruction)
+        data.save_reconstruction(
+            [reconstruction],
+            "reconstruction.{}.json".format(
+                datetime.datetime.now().isoformat().replace(":", "_")
+            ),
         )
 
 
@@ -923,7 +1198,6 @@ def grow_reconstruction(data, tracks_manager, reconstruction, images, gcp,
     The report's steps hold each resection round's candidates and time,
     each triangulation's size and time, and each bundle's report."""
     config = data.config
-    _no_partial_saves(config)
     report: Dict[str, Any] = {"steps": []}
     camera_priors = data.load_camera_models()
     rig_camera_priors = data.load_rig_cameras()
@@ -940,6 +1214,7 @@ def grow_reconstruction(data, tracks_manager, reconstruction, images, gcp,
     should_bundle = ShouldBundle(data, reconstruction)
     should_retriangulate = ShouldRetriangulate(data, reconstruction)
     while True:
+        save_partial_reconstructions(data, tracks_manager, reconstruction)
         candidates = reconstructed_points_for_images(
             tracks_manager, reconstruction, images
         )
@@ -1101,14 +1376,12 @@ def remove_isolated_points(reconstruction) -> int:
 
 def incremental_reconstruction(data, tracks_manager, device=None):
     """The full incremental pipeline (reconstruction.py:1712-1786) on
-    `device` (CUDA unless told otherwise).  Raises NotImplementedError when
-    the run ends in more than one partial reconstruction while
-    `merge_partial_reconstructions` is on: the merge is not ported."""
+    `device` (CUDA unless told otherwise), partials merged when
+    `merge_partial_reconstructions` is on."""
     device = resolve_device(device)
     logger.info("Starting incremental reconstruction")
     report: Dict[str, Any] = {}
     chrono = Chronometer()
-    _no_partial_saves(data.config)
 
     images = tracks_manager.get_shot_ids()
     data.init_reference(images)
@@ -1143,13 +1416,38 @@ def incremental_reconstruction(data, tracks_manager, device=None):
                 reconstructions.append(reconstruction)
                 reconstructions = sorted(reconstructions, key=lambda x: -len(x.shots))
 
-    if len(reconstructions) > 1 and data.config.get(
-            "merge_partial_reconstructions", True):
-        raise NotImplementedError(
-            f"the run ended in {len(reconstructions)} partial reconstructions "
-            "and merging them (merge_partial_reconstructions) is not ported "
-            "yet: set merge_partial_reconstructions: no to keep them apart"
+    # Merge partial reconstructions that share triangulated tracks (the JAX
+    # package's merge step, reconstruction.py:1420-1458; config-gated).
+    if (
+        len(reconstructions) > 1
+        and data.config.get("merge_partial_reconstructions", True)
+    ):
+        n_before = len(reconstructions)
+        t0 = time.time()
+        reconstructions = merge_reconstructions(
+            reconstructions, data.config, tracks_manager=tracks_manager,
+            data=data, gcp=gcp, device=device,
         )
+        if len(reconstructions) < n_before:
+            camera_priors = data.load_camera_models()
+            rig_camera_priors = data.load_rig_cameras()
+            for rec in reconstructions:
+                # Recover cross-part tracks neither partial could
+                # triangulate alone, then one global bundle.
+                retriangulate(tracks_manager, rec, data.config, device=device)
+                align_reconstruction(rec, gcp, data.config, device=device)
+                bundle(rec, camera_priors, rig_camera_priors, gcp,
+                       data.config, device=device)
+                remove_outliers(rec, data.config)
+                paint_reconstruction(data, tracks_manager, rec)
+            reconstructions = sorted(
+                reconstructions, key=lambda x: -len(x.shots)
+            )
+            report["merge_settle_moved"] = [
+                getattr(r, "merge_settle_moved", None)
+                for r in reconstructions
+            ]
+        report["merge_time"] = time.time() - t0
 
     for k, r in enumerate(reconstructions):
         logger.info(
@@ -1163,21 +1461,85 @@ def incremental_reconstruction(data, tracks_manager, device=None):
     return report, reconstructions
 
 
-def merge_reconstructions(reconstructions, config, tracks_manager=None,
-                          data=None, gcp=None):
-    """Not ported (reconstruction.py:1383-1407 of the reference)."""
-    raise NotImplementedError(
-        "merge_reconstructions (merge_partial_reconstructions) is not ported "
-        "yet")
-
-
 def triangulation_reconstruction(data, tracks_manager, device=None):
-    """Not ported (reconstruction.py:1600-1665 of the reference)."""
-    raise NotImplementedError(
-        "triangulation_reconstruction (reconstruct --algorithm "
-        "triangulation) is not ported yet")
+    """Reconstruction from metadata-initialized poses: iterative
+    retriangulation + bundle (reconstruction.py:1600-1665), on `device`."""
+    from opensfm_tpu_torch.reconstruction_helpers import (
+        reconstruction_from_metadata,
+    )
+
+    device = resolve_device(device)
+    report: Dict[str, Any] = {}
+    chrono = Chronometer()
+    images = tracks_manager.get_shot_ids()
+    reconstruction = reconstruction_from_metadata(data, images)
+
+    config = data.config
+    camera_priors = data.load_camera_models()
+    rig_camera_priors = data.load_rig_cameras()
+    gcp = data.load_ground_control_points()
+
+    config_override = dict(config)
+    config_override["triangulation_type"] = "ROBUST"
+    config_override["bundle_max_iterations"] = 10
+
+    report["steps"] = []
+    outer_iterations = 3
+    inner_iterations = 5
+    for i in range(outer_iterations):
+        rrep = retriangulate(tracks_manager, reconstruction, config_override,
+                             device=device)
+        step = {"retriangulation": rrep}
+        report["steps"].append(step)
+        for j in range(inner_iterations):
+            if len(reconstruction.points) == 0:
+                break
+            align_reconstruction(reconstruction, gcp, config_override,
+                                 device=device)
+            step[f"bundle_{j}"] = bundle(
+                reconstruction, camera_priors, rig_camera_priors, None,
+                config_override, device=device,
+            )
+            remove_outliers(reconstruction, config_override)
+
+    # GCP-only alignment + per-camera GPS bias, falling back to
+    # uncompensated GPS if that fails (reconstruction.py:1656-1663).
+    align_result = align_reconstruction(
+        reconstruction, gcp, config, bias_override=True, device=device
+    )
+    if not align_result and config["bundle_compensate_gps_bias"]:
+        config = dict(config)
+        config["bundle_compensate_gps_bias"] = False
+    report["bundle_final"] = bundle(
+        reconstruction, camera_priors, rig_camera_priors, gcp, config,
+        device=device)
+    remove_outliers(reconstruction, config)
+    paint_reconstruction(data, tracks_manager, reconstruction)
+    chrono.lap("triangulation_reconstruction")
+    report["wall_times"] = dict(chrono.lap_times())
+    report["device"] = str(device)
+    return report, [reconstruction]
 
 
 def reconstruct_from_prior(data, tracks_manager, rec_prior, device=None):
-    """Not ported (reconstruction.py:1789-1819 of the reference)."""
-    raise NotImplementedError("reconstruct_from_prior is not ported yet")
+    """Retriangulate a reconstruction from a prior model and bundle it
+    (reconstruction.py:1789-1819), on `device`."""
+    device = resolve_device(device)
+    reconstruction = copy.deepcopy(rec_prior)
+    report: Dict[str, Any] = {}
+    config = data.config
+    camera_priors = data.load_camera_models()
+    rig_camera_priors = data.load_rig_cameras()
+    gcp = data.load_ground_control_points()
+
+    report["retriangulate"] = retriangulate(tracks_manager, reconstruction,
+                                            config, device=device)
+    align_reconstruction(reconstruction, gcp, config, device=device)
+    report["bundle"] = bundle(
+        reconstruction, camera_priors, rig_camera_priors, gcp, config,
+        device=device,
+    )
+    remove_outliers(reconstruction, config)
+    paint_reconstruction(data, tracks_manager, reconstruction)
+    report["device"] = str(device)
+    return report, reconstruction

@@ -1,0 +1,308 @@
+"""Rendered image datasets for the port's chain from images.
+
+`write_image_dataset` renders views on a circle looking inward at a
+non-planar textured scene (two boxes on a ground plane, each face with its
+own multi-octave value-noise texture and shade; optionally ringed by four
+textured walls) with torch on a device,
+from a seed, and writes them as PNGs with an eXIf chunk (Make, Model,
+FocalLengthIn35mmFilm, a capture time and GPS with noise) by its own PNG
+and EXIF writers, so neither OpenCV nor PIL is needed.  It returns the true
+camera centres; `grade_reconstruction` holds a
+reconstruction's camera centres against them after a similarity fit.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import zlib
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import yaml
+
+GPS_ORIGIN = (52.519, 13.401, 30.0)
+MAKE, MODEL = "Synthetic", "Renderer 1"
+FOCAL_35MM = 28  # mm: focal ratio 28 / 36 of the larger image side
+# Boxes [x0, x1, y0, y1, z0, z1] on the ground plane z = 0.
+BOXES = np.array([[-1.5, 1.5, -1.0, 1.0, 0.0, 2.0],
+                  [1.2, 2.4, 0.8, 2.2, 0.0, 1.0]])
+GROUND_EXTENT = 14.0  # m: the ground plane spans [-E, E]^2, sky beyond
+WALL_HEIGHT, WALL_THICKNESS = 5.0, 0.2  # m, of the optional walls
+TEXTURE_CYCLES = (0.5, 1.0, 2.0, 4.0, 8.0)  # per metre, one octave each
+TEXTURE_GRID = 64  # noise grid cells per octave (the texture wraps)
+SUPERSAMPLE = 2  # rays per pixel along each axis
+GPS_NOISE = 0.5  # m, standard deviation of the EXIF positions
+
+
+def view_poses(n_views: int, step_deg: Optional[float] = None,
+               radius: float = 8.0, height: float = 3.0,
+               target=(0.0, 0.0, 0.6)) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """(R world-to-camera, centre) of `n_views` cameras on a circle,
+    `step_deg` apart (evenly around the whole circle by default), each
+    looking at `target` (x right, y down, z forward)."""
+    step = 2 * np.pi / n_views if step_deg is None else np.radians(step_deg)
+    out = []
+    for i in range(n_views):
+        a = step * i
+        c = np.array([radius * np.cos(a), radius * np.sin(a), height])
+        z = np.asarray(target) - c
+        z /= np.linalg.norm(z)
+        x = np.cross(z, [0.0, 0.0, 1.0])
+        x /= np.linalg.norm(x)
+        out.append((np.stack([x, np.cross(z, x), z]), c))
+    return out
+
+
+def _noise_grids(seed: int, n_surfaces: int, device) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    g = rng.uniform(-1.0, 1.0, (n_surfaces, len(TEXTURE_CYCLES),
+                                TEXTURE_GRID, TEXTURE_GRID))
+    return torch.as_tensor(g, dtype=torch.float32, device=device)
+
+
+def _texture(grids: torch.Tensor, surface: torch.Tensor, u: torch.Tensor,
+             v: torch.Tensor) -> torch.Tensor:
+    """Sum over octaves of bilinear value noise at (u, v) metres."""
+    n = TEXTURE_GRID
+    out = torch.zeros_like(u)
+    for o, cycles in enumerate(TEXTURE_CYCLES):
+        gu, gv = u * cycles, v * cycles
+        iu, iv = torch.floor(gu), torch.floor(gv)
+        fu, fv = gu - iu, gv - iv
+        iu = iu.long() % n
+        iv = iv.long() % n
+        g = grids[:, o].reshape(-1)
+        base = surface * n * n
+
+        def at(a, b):
+            return g[base + (a % n) * n + (b % n)]
+
+        val = ((1 - fu) * (1 - fv) * at(iu, iv) + fu * (1 - fv) * at(iu + 1, iv)
+               + (1 - fu) * fv * at(iu, iv + 1) + fu * fv * at(iu + 1, iv + 1))
+        out = out + val / cycles ** 0.35
+    return out
+
+
+def scene_boxes(walls: Optional[float] = None) -> np.ndarray:
+    """BOXES, and with `walls` four WALL_HEIGHT walls (thin boxes) whose
+    inner faces stand `walls` metres from the origin along x and y."""
+    if walls is None:
+        return BOXES
+    d, t = float(walls), WALL_THICKNESS
+    ring = [[d, d + t, -d - t, d + t], [-d - t, -d, -d - t, d + t],
+            [-d, d, d, d + t], [-d, d, -d - t, -d]]
+    return np.concatenate([BOXES, [r + [0.0, WALL_HEIGHT] for r in ring]])
+
+
+def render_view(R: np.ndarray, centre: np.ndarray, width: int, height: int,
+                seed: int = 0, device="cpu",
+                walls: Optional[float] = None) -> np.ndarray:
+    """[height, width, 3] uint8 RGB of the scene (`scene_boxes(walls)`)
+    from camera (R, centre), ray-cast on `device` with SUPERSAMPLE^2 rays
+    per pixel."""
+    dev = torch.device(device)
+    ss = SUPERSAMPLE
+    size = max(width, height)
+    focal = FOCAL_35MM / 36.0
+    js, is_ = torch.meshgrid(
+        (torch.arange(height * ss, device=dev, dtype=torch.float64) + 0.5) / ss,
+        (torch.arange(width * ss, device=dev, dtype=torch.float64) + 0.5) / ss,
+        indexing="ij")
+    xn = (is_ - width / 2.0) / size / focal
+    yn = (js - height / 2.0) / size / focal
+    d_cam = torch.stack([xn, yn, torch.ones_like(xn)], dim=-1)
+    Rt = torch.as_tensor(R, dtype=torch.float64, device=dev)
+    d = d_cam @ Rt  # world directions (R^T d_cam), not normalized
+    c = torch.as_tensor(centre, dtype=torch.float64, device=dev)
+    inf = torch.full(d.shape[:-1], float("inf"), dtype=torch.float64,
+                     device=dev)
+
+    # Ground plane.
+    t_best = torch.where(d[..., 2] < -1e-12, -c[2] / d[..., 2], inf)
+    p = c + t_best[..., None] * d
+    outside = (p[..., 0].abs() > GROUND_EXTENT) | (p[..., 1].abs() > GROUND_EXTENT)
+    t_best = torch.where(outside, inf, t_best)
+    surface = torch.zeros(d.shape[:-1], dtype=torch.long, device=dev)
+    # Boxes (slab test): surface 1 + 3 * box + axis of the entry face.
+    boxes = scene_boxes(walls)
+    for b, box in enumerate(boxes):
+        lo = torch.as_tensor(box[0::2], dtype=torch.float64, device=dev)
+        hi = torch.as_tensor(box[1::2], dtype=torch.float64, device=dev)
+        inv = 1.0 / torch.where(d.abs() < 1e-12, torch.full_like(d, 1e-12), d)
+        t0, t1 = (lo - c) * inv, (hi - c) * inv
+        tmin, tmax = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        t_near, axis = tmin.max(dim=-1)
+        t_far = tmax.min(dim=-1).values
+        hit = (t_near <= t_far) & (t_near > 0) & (t_near < t_best)
+        t_best = torch.where(hit, t_near, t_best)
+        surface = torch.where(hit, 1 + 3 * b + axis, surface)
+    sky = torch.isinf(t_best)
+    p = c + torch.where(sky, torch.zeros_like(t_best), t_best)[..., None] * d
+
+    # Texture coordinates on each surface: the two axes along its face.
+    axis = torch.where(surface == 0, torch.full_like(surface, 2),
+                       (surface - 1) % 3)
+    u = torch.where(axis == 0, p[..., 1], p[..., 0])
+    v = torch.where(axis == 2, p[..., 1], p[..., 2])
+    grids = _noise_grids(seed, 1 + 3 * len(boxes), dev)
+    tex = _texture(grids, surface, u.float(), v.float())
+    # The ground, then each box's three face axes; boxes alternate between
+    # two shade sets and two tints (the walls continue the pattern).
+    box_shades = ([0.75, 0.55, 0.9], [0.7, 0.5, 0.85])
+    box_tints = ([0.8, 0.45, 0.35], [0.35, 0.5, 0.75])
+    shades = [1.0] + [x for b in range(len(boxes)) for x in box_shades[b % 2]]
+    tints = [[0.55, 0.5, 0.4]] + [box_tints[b % 2] for b in range(len(boxes))
+                                  for _ in range(3)]
+    shade = torch.tensor(shades, device=dev)[surface]
+    tint = torch.tensor(tints, device=dev)[surface]
+    value = (0.5 + 0.45 * torch.tanh(2.5 * tex))[..., None] \
+        * shade[..., None] * tint * 1.6
+    value = torch.where(sky[..., None],
+                        torch.tensor([0.7, 0.8, 0.95], device=dev), value)
+    rgb = value.clamp(0, 1).reshape(height, ss, width, ss, 3).mean(dim=(1, 3))
+    return (rgb * 255 + 0.5).to(torch.uint8).cpu().numpy()
+
+
+def _tiff_ifd(entries, offset: int) -> Tuple[bytes, bytes]:
+    """(IFD bytes, its out-of-line data) of `entries` [(tag, type, count,
+    payload bytes)], little-endian, the IFD placed at `offset`."""
+    n = len(entries)
+    data_at = offset + 2 + 12 * n + 4
+    ifd, extra = struct.pack("<H", n), b""
+    for tag, typ, count, payload in sorted(entries):
+        if len(payload) <= 4:
+            ifd += struct.pack("<HHL", tag, typ, count) + payload.ljust(4, b"\0")
+        else:
+            ifd += struct.pack("<HHLL", tag, typ, count, data_at + len(extra))
+            extra += payload + b"\0" * (len(payload) % 2)
+    return ifd + struct.pack("<L", 0), extra
+
+
+def _ascii(tag, text):
+    b = text.encode() + b"\0"
+    return (tag, 2, len(b), b)
+
+
+def _rationals(tag, values, den=10000):
+    nums = [(int(round(v * den)), den) for v in values]
+    return (tag, 5, len(nums), b"".join(struct.pack("<LL", *r) for r in nums))
+
+
+def _dms(deg: float) -> List[float]:
+    deg = abs(deg)
+    d = int(deg)
+    m = int((deg - d) * 60)
+    return [d, m, (deg - d - m / 60.0) * 3600.0]
+
+
+def exif_tiff(lat: float, lon: float, alt: float, capture: str) -> bytes:
+    """A little-endian TIFF EXIF block: Make, Model, the Exif IFD
+    (FocalLengthIn35mmFilm, DateTimeOriginal) and the GPS IFD."""
+    exif_entries = [(0xA405, 3, 1, struct.pack("<H", FOCAL_35MM)),
+                    _ascii(0x9003, capture)]
+    gps_entries = [
+        (0x0000, 1, 4, b"\x02\x02\x00\x00"),
+        _ascii(0x0001, "N" if lat >= 0 else "S"), _rationals(0x0002, _dms(lat)),
+        _ascii(0x0003, "E" if lon >= 0 else "W"), _rationals(0x0004, _dms(lon)),
+        (0x0005, 1, 1, b"\x00"), _rationals(0x0006, [max(alt, 0.0)], 1000),
+        _rationals(0x000B, [5.0], 10),
+    ]
+    ifd0 = [_ascii(0x010F, MAKE), _ascii(0x0110, MODEL),
+            (0x8769, 4, 1, b""), (0x8825, 4, 1, b"")]
+    # Lay out: header, IFD0 (+ data), Exif IFD (+ data), GPS IFD (+ data).
+    ifd0_len = 2 + 12 * len(ifd0) + 4
+    _, data0 = _tiff_ifd([e for e in ifd0 if e[3]], 8)
+    exif_at = 8 + ifd0_len + len(data0)
+    exif_ifd, exif_data = _tiff_ifd(exif_entries, exif_at)
+    gps_at = exif_at + len(exif_ifd) + len(exif_data)
+    gps_ifd, gps_data = _tiff_ifd(gps_entries, gps_at)
+    ifd0 = [e if e[3] else (e[0], 4, 1, struct.pack(
+        "<L", exif_at if e[0] == 0x8769 else gps_at)) for e in ifd0]
+    ifd0_bytes, data0 = _tiff_ifd(ifd0, 8)
+    return (b"II*\0" + struct.pack("<L", 8) + ifd0_bytes + data0 + exif_ifd
+            + exif_data + gps_ifd + gps_data)
+
+
+def _png_chunk(kind: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + kind + payload
+            + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
+
+
+def write_png(path: str, rgb: np.ndarray, exif: Optional[bytes] = None) -> None:
+    """An 8-bit RGB PNG, rows Sub-filtered, with an optional eXIf chunk."""
+    h, w, _ = rgb.shape
+    rows = rgb.reshape(h, w * 3).astype(np.int16)
+    sub = rows.copy()
+    sub[:, 3:] -= rows[:, :-3]
+    raw = np.concatenate([np.ones((h, 1), np.uint8),
+                          (sub & 255).astype(np.uint8)], axis=1)
+    data = (b"\x89PNG\r\n\x1a\n"
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + (_png_chunk(b"eXIf", exif) if exif else b"")
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+            + _png_chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def write_image_dataset(path: str, n_views: int = 16, width: int = 2048,
+                        height: int = 1536, seed: int = 0, device="cpu",
+                        step_deg: Optional[float] = None,
+                        config: Optional[Dict[str, Any]] = None,
+                        walls: Optional[float] = None) -> Dict[str, Any]:
+    """Render `n_views` views (`view_poses`) of `scene_boxes(walls)` into
+    `path`/images as PNGs with EXIF (GPS with GPS_NOISE metres of noise)
+    and write `config.yaml` (`config` over the defaults).  Returns
+    {"centres": {image: true centre}}."""
+    from opensfm_tpu_torch import geo
+
+    os.makedirs(os.path.join(path, "images"), exist_ok=True)
+    with open(os.path.join(path, "config.yaml"), "w") as f:
+        yaml.safe_dump(dict(config or {}), f)
+    ref = geo.TopocentricConverter(*GPS_ORIGIN)
+    rng = np.random.default_rng(seed + 1)
+    truth: Dict[str, Any] = {"centres": {}}
+    for i, (R, c) in enumerate(view_poses(n_views, step_deg)):
+        image = f"view_{i:03d}.png"
+        rgb = render_view(R, c, width, height, seed=seed, device=device,
+                          walls=walls)
+        lat, lon, alt = ref.to_lla(*(c + rng.normal(0, GPS_NOISE, 3)))
+        write_png(os.path.join(path, "images", image), rgb,
+                  exif_tiff(lat, lon, alt, f"2024:05:01 12:{i // 60:02d}:"
+                                           f"{i % 60:02d}"))
+        truth["centres"][image] = c
+    return truth
+
+
+def grade_reconstruction(reconstructions, truth: Dict[str, Any],
+                         tracks_manager=None) -> Dict[str, Any]:
+    """The largest reconstruction's shots, the number of reconstructions,
+    its camera-centre RMS after the similarity (Umeyama) that best maps
+    them onto the true centres (metres), and, with `tracks_manager`, its
+    reprojection RMS in pixels of the larger image side over the track
+    observations within 0.006 (normalized units, as
+    `synthetic_bundle.grade_reconstruction`) of their projection."""
+    import synthetic_bundle as sb
+
+    rec = max(reconstructions, key=lambda r: len(r.shots))
+    ids = sorted(rec.shots)
+    est = np.array([rec.shots[s].pose.get_origin() for s in ids])
+    true = np.array([truth["centres"][s] for s in ids])
+    me, mt = est.mean(0), true.mean(0)
+    e, t = est - me, true - mt
+    U, S, Vt = np.linalg.svd(t.T @ e / len(ids))
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    Rf = U @ D @ Vt
+    scale = np.trace(np.diag(S) @ D) / np.mean(np.sum(e * e, axis=1))
+    d = scale * e @ Rf.T - t
+    out = {"shots": len(ids), "reconstructions": len(reconstructions),
+           "points": len(rec.points),
+           "centre_rms": float(np.sqrt(np.mean(np.sum(d * d, axis=1))))}
+    if tracks_manager is not None:
+        cam = next(iter(rec.cameras.values()))
+        size = max(cam.width, cam.height)
+        out["reprojection_rms_px"] = sb.reprojection_rms(
+            rec, tracks_manager, max_error=0.006) * size
+    return out
