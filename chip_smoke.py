@@ -97,8 +97,31 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     through the command runner on a copy whose metadata poses are the
     truth plus noise, graded against the truth, with wall times and the
     bundle kernels' launches (rows 1-2 or, where a problem densifies, 3-5).
-Then the {"reconstruct": {...}}, {"image_chain": {...}} and
-{"merge_and_algorithms": {...}} JSON lines, the card's name and power limit,
+17. the generic route (every problem the kernels do not take): bundle
+    adjustment at phase 3's 256 x 32,768 x tracks of 8, f64, on brown,
+    fisheye_opencv, fisheye624 and spherical maps, a brown /
+    fisheye_opencv mixed map, a 64-instance x 4-camera rig with optimized
+    rig cameras and a perspective map with depth rows, each with a warm LM
+    trial's ms, device busy share and kernels beside the kernel route's on
+    phase 3's problem, its solve lowering the cost with none of rows 1-5
+    launched; the same problems at 32 x 4,096 on the card against the CPU
+    (3 iterations: the same count, states within 1e-9); then 16 images x
+    8,192 features (brown and fisheye_opencv cameras) through
+    `match_features` (row 6), `create_tracks` and `reconstruct`, graded
+    with phase 14's bounds, and an 8-image subset on the card against the
+    CPU;
+18. a rig from images: 12 instances of a two-camera rig (a brown camera
+    left, a fisheye_opencv camera right, 0.4 m apart) at 2,048 x 1,536
+    rendered on the card through their models, pairs from each image's 8
+    nearest by GPS, then `extract_metadata`
+    (the camera model overrides give each rig camera its model),
+    `detect_features`, `create_rig pattern`, `match_features`,
+    `create_tracks` and `reconstruct`: all 24 shots in one reconstruction,
+    the centre RMS and the rig cameras' baseline and relative rotation
+    (as calibrated and as reconstructed) within the bounds below.
+Then the {"reconstruct": {...}}, {"image_chain": {...}},
+{"merge_and_algorithms": {...}}, {"models": {...}} and {"rig_chain":
+{...}} JSON lines, the card's name and power limit,
 one {"kernels": [...]} JSON line, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -1426,17 +1449,17 @@ def recon_breakdown(report):
     return out
 
 
-def _subset_card_vs_cpu(match_path, dev="cuda"):
+def _subset_card_vs_cpu(match_path, dev="cuda", images=None, base=None):
     """Phase 14's card-vs-CPU check: `reconstruct` of an 8-image subset
-    (phase 9's matches among them, one tracks.csv) on the card and on the
-    CPU; the RANSAC draws come from CPU generators, so both see the same
-    samples."""
+    (the first 8 images by default; the dataset's matches among them, one
+    tracks.csv) on the card and on the CPU; the RANSAC draws come from CPU
+    generators, so both see the same samples."""
     import synthetic_bundle as sb
     from opensfm_tpu_torch.commands import command_runner, opensfm_commands
     from opensfm_tpu_torch.dataset import DataSet
 
-    base = os.path.join(WORK, "recon_subset")
-    images = [sb.shot_id(i) for i in range(RECON_SUBSET)]
+    base = base or os.path.join(WORK, "recon_subset")
+    images = images or [sb.shot_id(i) for i in range(RECON_SUBSET)]
     sb.subset_dataset(match_path, base, images, matches=True)
     command_runner(opensfm_commands,
                    argv=["create_tracks", base, "--device", dev])
@@ -1454,11 +1477,12 @@ def _subset_card_vs_cpu(match_path, dev="cuda"):
     card, cpu = recs["card"], recs["cpu"]
     check(len(card) == len(cpu) == 1, "subset: one reconstruction each")
     check(set(card[0].shots) == set(cpu[0].shots) == set(images),
-          "subset: the card and the CPU reconstruct the same 8 shots")
+          f"subset: the card and the CPU reconstruct the same "
+          f"{len(images)} shots")
     diff = max(float(np.linalg.norm(card[0].shots[s].pose.get_origin()
                                     - cpu[0].shots[s].pose.get_origin()))
                for s in images)
-    log(f"  card vs CPU, {RECON_SUBSET}-image subset: card "
+    log(f"  card vs CPU, {len(images)}-image subset: card "
         f"{secs['card']:.2f} s, CPU {secs['cpu']:.2f} s; points "
         f"{len(card[0].points)} / {len(cpu[0].points)}; largest centre "
         f"difference {diff:.3e} m (bound {CARD_CPU_CENTRE_TOL:g})")
@@ -1973,6 +1997,274 @@ def run_merge_and_algorithms(match_path, feature_points, n_shots, n_points,
 
 
 # --------------------------------------------------------------------------
+# Camera models, mixed maps, rigs and depth priors: the generic route
+# (phase 17), and a rig from images (phase 18)
+# --------------------------------------------------------------------------
+
+MODEL_LABELS = ("brown", "fisheye_opencv", "fisheye624", "spherical",
+                "brown+fisheye_opencv", "rig 4 cameras, optimized",
+                "perspective+depth")
+MODEL_SIZE = (256, 32768, 8)  # shots, points, track window: phase 3's
+MODELS_VS_CPU_SHOTS, MODELS_VS_CPU_POINTS = 32, 4096  # phase 5's dense size
+# Card vs CPU on each problem, 3 iterations: the states within this much
+# of their largest entry (the sums run in other orders on the two).
+MODELS_STATE_REL = 1e-9
+MIXED_SHOTS, MIXED_POINTS = 16, 8192  # images 0-7 brown, 8-15 fisheye_opencv
+MIXED_SUBSET = range(4, 12)  # 4 brown and 4 fisheye_opencv images
+
+
+def model_problem(label, n_shots, n_points, track_window):
+    """synthetic_bundle.make_model_problem for one of MODEL_LABELS: a
+    camera type for every shot, a brown / fisheye_opencv map alternating
+    shot by shot, a rig of 4 cameras (n_shots / 4 instances) with
+    optimized rig cameras, or perspective with radial depth rows."""
+    import synthetic_bundle as sb
+
+    kw = {"brown+fisheye_opencv": dict(
+              camera_types=["brown", "fisheye_opencv"] * (n_shots // 2)),
+          "rig 4 cameras, optimized": dict(
+              camera_types="perspective", rig_cameras=4, optimize_rig=True),
+          "perspective+depth": dict(camera_types="perspective",
+                                    depth="radial")}.get(
+        label, dict(camera_types=label))
+    return sb.make_model_problem(n_shots, n_points, seed=7,
+                                 track_window=track_window, **kw)
+
+
+def lm_trial_profile(problem, dev="cuda"):
+    """One warm LM trial (step + cost), f64, of `problem` on its route:
+    the mean wall ms of 3 trials, one trial traced for its device busy ms
+    and kernels, and one residual/Jacobian evaluation traced for its
+    kernels and busy ms."""
+    from opensfm_tpu_torch.ba import lm
+
+    p, dense, state, data = lm.device_problem(problem, torch.float64,
+                                              torch.device(dev))
+    st = lm.solver_statics(p, dense)
+    pmax = st.pop("pmax")
+    ni, nr, nc = len(p.inst), len(p.rigcam), len(p.cam)
+    kw = dict(loss=p.loss, loss_threshold=float(p.loss_threshold),
+              dense=dense, pmax=pmax, **st)
+
+    def trial():
+        new = lm._lm_step(state, data, 1e-4, ni=ni, nr=nr, nc=nc, **kw)
+        return lm._total_cost(new, data, **kw).item()
+
+    trial()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        trial()
+    warm_ms = (time.perf_counter() - t0) / 3 * 1e3
+    _, k, c, busy, ms = _trace(trial)
+
+    def residuals():
+        r = lm._residual_data(state, data, p.loss, float(p.loss_threshold),
+                              pmax=pmax, **{key: st[key] for key in (
+                                  "ptype", "with_depth", "rig_transform",
+                                  "rig_jac", "generic")})
+        return r[0].sum().item()
+
+    _, k_res, _, busy_res, _ = _trace(residuals)
+    return dict(warm_trial_ms=warm_ms, traced_wall_ms=ms, busy_ms=busy,
+                busy_share=busy / ms, kernels_per_trial=k,
+                copies_per_trial=c, kernels_per_residual_eval=k_res,
+                residual_eval_busy_ms=busy_res)
+
+
+def run_models(dev="cuda"):
+    """Phase 17: the generic route on every problem of MODEL_LABELS at
+    phase 3's size (a warm trial profiled, then the whole solve, which must
+    lower the cost and launch none of rows 1-5), beside the kernel route
+    on phase 3's problem; the same problems at 32 x 4,096 on the card
+    against the CPU, 3 iterations; then a brown + fisheye_opencv matching
+    dataset through `match_features`, `create_tracks` and `reconstruct`,
+    graded with phase 14's bounds, and an 8-image subset of it on the card
+    against the CPU."""
+    import synthetic_bundle as sb
+    from opensfm_tpu_torch.ba import lm
+    from opensfm_tpu_torch.commands import command_runner, opensfm_commands
+    from opensfm_tpu_torch.dataset import DataSet
+
+    out = {"bundle": {}, "vs_cpu": {}}
+    n_shots, n_points, window = MODEL_SIZE
+    size = f"{n_shots} x {n_points} x K={window}"
+    kernel_problem = sb.make_problem(n_shots, n_points, track_window=window)
+    out["bundle"]["perspective (kernel route)"] = dict(
+        lm_trial_profile(kernel_problem, dev), route="canonical")
+    log(f"  kernel route, {size}: "
+        f"{json.dumps(out['bundle']['perspective (kernel route)'])}")
+    for label in MODEL_LABELS:
+        problem = model_problem(label, n_shots, n_points, window)
+        prof = lm_trial_profile(problem, dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = lm.bundle_adjust(problem, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        row = dict(prof, route=res.route, initial_cost=res.initial_cost,
+                   final_cost=res.final_cost, iterations=res.iterations,
+                   solve_s=wall, observations=len(problem.obs_uv),
+                   kernel_launches=sum(counts[k] for k in BA_KERNELS))
+        out["bundle"][label] = row
+        log(f"  {label}, {size}: {json.dumps(row)}")
+        check(res.route == "generic", f"{label}: the generic route")
+        check(np.isfinite(res.final_cost)
+              and res.final_cost < res.initial_cost, f"{label}: cost down")
+        check(row["kernel_launches"] == 0,
+              f"{label}: no BA kernel launched on the generic route")
+
+    for label in MODEL_LABELS:
+        problem = model_problem(label, MODELS_VS_CPU_SHOTS,
+                                MODELS_VS_CPU_POINTS, None)
+        res, secs = {}, {}
+        for on in (dev, "cpu"):
+            t0 = time.perf_counter()
+            res[on] = lm.bundle_adjust(problem, max_iterations=3, device=on)
+            secs[on] = time.perf_counter() - t0
+        g, c = res[dev], res["cpu"]
+        rel = max(float(np.abs(getattr(g, k) - getattr(c, k)).max()
+                        / max(np.abs(getattr(c, k)).max(), 1e-300))
+                  for k in ("inst", "rigcam", "cam", "points"))
+        out["vs_cpu"][label] = dict(card_s=secs[dev], cpu_s=secs["cpu"],
+                                    iterations=g.iterations,
+                                    cpu_iterations=c.iterations,
+                                    max_state_rel=rel)
+        log(f"  {label}, {MODELS_VS_CPU_SHOTS} x {MODELS_VS_CPU_POINTS} card "
+            f"vs CPU: {json.dumps(out['vs_cpu'][label])}")
+        check(g.iterations == c.iterations, f"{label}: same iterations")
+        check(rel <= MODELS_STATE_REL,
+              f"{label}: states within {MODELS_STATE_REL:g} ({rel:.3g})")
+
+    path = os.path.join(WORK, "match_mixed")
+    shutil.rmtree(path, ignore_errors=True)
+    types = ["brown"] * (MIXED_SHOTS // 2) \
+        + ["fisheye_opencv"] * (MIXED_SHOTS // 2)
+    tracks = sb.write_matching_dataset(
+        path, n_shots=MIXED_SHOTS, n_points=MIXED_POINTS, track_window=8,
+        features_per_image=MATCH_FEATURES, seed=5, camera_types=types)
+    stages = {}
+    reset_launches()
+    for cmd in ("match_features", "create_tracks", "reconstruct"):
+        t0 = time.perf_counter()
+        command_runner(opensfm_commands, argv=[cmd, path, "--device", dev])
+        torch.cuda.synchronize()
+        stages[cmd] = time.perf_counter() - t0
+    counts = launches()
+    log(f"  {MIXED_SHOTS} images (brown, fisheye_opencv) x {MATCH_FEATURES} "
+        f"features: stage wall s {json.dumps(stages)}; launches {counts}")
+    check(counts["top2_sqdist"] > 0, "top2_sqdist launched in phase 17")
+    check(all(counts[k] == 0 for k in BA_KERNELS),
+          "no BA kernel launched on the brown / fisheye map")
+    data = DataSet(path)
+    recs = data.load_reconstruction()
+    shots, points = sb.matching_scene(MIXED_SHOTS, MIXED_POINTS, seed=5)
+    grade = sb.grade_reconstruction(recs, data.load_tracks_manager(), tracks,
+                                    shots, points)
+    log(f"  graded against the truth: {json.dumps(grade)}")
+    check(grade["reconstructions"] == 1 and grade["shots"] == MIXED_SHOTS,
+          f"all {MIXED_SHOTS} shots in one reconstruction")
+    check(grade["centre_rms"] < MAX_CENTRE_RMS,
+          f"centre RMS {grade['centre_rms']:.3e} m")
+    check(grade["point_rms"] < MAX_POINT_RMS,
+          f"point RMS {grade['point_rms']:.3e} m")
+    check(grade["reprojection_rms"] < MAX_REPROJ_RMS * sb.NOISE,
+          f"reprojection RMS {grade['reprojection_rms']:.3e}")
+    check(grade["points_mismatched"] <= MAX_MISMATCHED * grade["points"],
+          f"{grade['points_mismatched']} points mix true points")
+    vs_cpu = _subset_card_vs_cpu(
+        path, dev, images=[sb.shot_id(i) for i in MIXED_SUBSET],
+        base=os.path.join(WORK, "mixed_subset"))
+    out.update(chain_stage_s=stages, launches=counts, grade=grade,
+               subset_vs_cpu=vs_cpu)
+    return out
+
+
+RIG_VIEWS = 12  # instances of synthetic_images.RIG on phase 15's arc
+# Pairs from each image's 8 nearest by GPS (itself included), as survey
+# rig datasets select them: 107 of the 276 pairs, instances up to 4 apart,
+# in the main dataset and in create_rig's calibration subset alike.
+RIG_CONFIG = {"matching_gps_neighbors": 8}
+# Bounds on phase 18's reconstruction against the render's truth, set
+# before its first card run on RIG_CONFIG's pairs from CPU runs of the same
+# 12 instances at 640 x 480 (image_chain_study.py --rig --config
+# '{"matching_gps_neighbors": 8}', PYTHONHASHSEED=1): 3.5 times the larger
+# of the two packages' readings.  The port read centre RMS 4.75e-3 m, the
+# rig cameras' baseline 0.39988 m (0.40126 m as `create_rig` calibrated
+# it) and their relative rotation 2.78e-3 rad (2.41e-3); the JAX package
+# read 4.33e-3 m, 0.39992 m (0.40132 m) and 2.63e-3 rad (2.16e-3).
+RIG_MAX_CENTRE_RMS = 0.0166  # m, after a similarity fit to the true centres
+RIG_MAX_BASELINE_ERR = 0.0046  # m, |baseline x the fit's scale - 0.4|
+RIG_MAX_ROTATION = 0.0097  # rad, the rig cameras' relative rotation
+
+
+def run_rig_chain(dev="cuda"):
+    """Phase 18: RIG_VIEWS instances of the two-camera rig rendered on the
+    card (RIG_CONFIG's pairs), `extract_metadata` (the overrides give each rig camera its
+    model), `detect_features`, `create_rig pattern`, `match_features`,
+    `create_tracks` and `reconstruct` through the command runner; the
+    reconstruction and the rig cameras (as calibrated and as
+    reconstructed) graded against the truth."""
+    import synthetic_images as si
+    from opensfm_tpu_torch.commands import command_runner, opensfm_commands
+    from opensfm_tpu_torch.dataset import DataSet
+
+    path = os.path.join(WORK, "rig_chain")
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    truth = si.write_image_dataset(path, RIG_VIEWS, IMAGE_W, IMAGE_H,
+                                   seed=0, device=dev,
+                                   step_deg=IMAGE_STEP_DEG, rig=si.RIG,
+                                   config=RIG_CONFIG)
+    stages = {"render": time.perf_counter() - t0}
+    reset_launches()
+    for cmd in ("extract_metadata", "detect_features", "create_rig",
+                "match_features", "create_tracks", "reconstruct"):
+        extra = (["pattern", json.dumps(truth["rig_patterns"])]
+                 if cmd == "create_rig" else [])
+        t0 = time.perf_counter()
+        command_runner(opensfm_commands,
+                       argv=[cmd, path, *extra, "--device", dev])
+        torch.cuda.synchronize()
+        stages[cmd] = time.perf_counter() - t0
+    counts = launches()
+    log(f"  stage wall s: {json.dumps(stages)}; launches {counts}")
+    check(counts["top2_sqdist"] > 0, "top2_sqdist launched in phase 18")
+    check(all(counts[k] == 0 for k in BA_KERNELS),
+          "no BA kernel launched on the brown / fisheye rig")
+
+    data = DataSet(path)
+    types = sorted(c.projection_type
+                   for c in data.load_camera_models().values())
+    check(types == ["brown", "fisheye_opencv"],
+          f"the overrides give the rig cameras their models ({types})")
+    check(len(data.load_rig_assignments()) == RIG_VIEWS,
+          f"create_rig found {RIG_VIEWS} instances")
+    recs = data.load_reconstruction()
+    grade = si.grade_reconstruction(recs, truth, data.load_tracks_manager())
+    rec = max(recs, key=lambda r: len(r.shots))
+    rig_out = {}
+    for key, cams in (("calibrated", data.load_rig_cameras()),
+                      ("reconstructed", rec.rig_cameras)):
+        base, angle = si.rig_reading(cams)
+        rig_out[key] = dict(baseline_m=base * grade["scale"],
+                            rotation_rad=angle)
+    log(f"  graded against the render's truth: {json.dumps(grade)}; rig "
+        f"cameras {json.dumps(rig_out)} (true baseline 0.4 m, rotation 0)")
+    check(grade["reconstructions"] == 1 and grade["shots"] == 2 * RIG_VIEWS,
+          f"all {2 * RIG_VIEWS} shots in one reconstruction")
+    check(grade["centre_rms"] < RIG_MAX_CENTRE_RMS,
+          f"centre RMS {grade['centre_rms']:.3e} m")
+    for key, r in rig_out.items():
+        check(abs(r["baseline_m"] - 0.4) < RIG_MAX_BASELINE_ERR,
+              f"{key} baseline {r['baseline_m']:.5f} m")
+        check(r["rotation_rad"] < RIG_MAX_ROTATION,
+              f"{key} relative rotation {r['rotation_rad']:.3e} rad")
+    return dict(stage_s=stages, launches=counts, grade=grade, rig=rig_out)
+
+
+# --------------------------------------------------------------------------
 # The dense-assembly ablation profiler (row 7)
 # --------------------------------------------------------------------------
 
@@ -2363,6 +2655,19 @@ def main() -> int:
                                      MATCH_POINTS, 5)
     log(f"  done in {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 17: camera models, mixed maps, rigs and depth priors at "
+        f"256 x 32768 x K=8, f64; card vs CPU; {MIXED_SHOTS} brown / "
+        f"fisheye_opencv images x {MATCH_FEATURES} features ({card})")
+    t0 = time.perf_counter()
+    models = run_models()
+    log(f"  done in {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 18: a rig from images, {RIG_VIEWS} instances of 2 cameras "
+        f"(brown, fisheye_opencv) at {IMAGE_W} x {IMAGE_H} ({card})")
+    t0 = time.perf_counter()
+    rig_chain = run_rig_chain()
+    log(f"  done in {time.perf_counter() - t0:.1f} s")
+
     paths = {name: ("bundle command 256x32768xK=8, f64", counts)
              for name in ("fused_residual_jacobian", "fused_cost")}
     paths.update({name: ("bundle_adjust dense 64x8192, f64", dense_counts)
@@ -2409,6 +2714,8 @@ def main() -> int:
                 words_command_stage_s=words_stages, command_s=match_wall,
                 command_stage_s=stages, precision=scores[0],
                 recall=scores[1], launches_image_chain=chain["launches"][name],
+                launches_models=models["launches"][name],
+                launches_rig_chain=rig_chain["launches"][name],
                 **pair_profile,
             ))
             continue
@@ -2428,6 +2735,8 @@ def main() -> int:
         kernels[-1]["launches_image_chain"] = chain["launches"][name]
         kernels[-1].update({f"launches_{k}": v["launches"][name]
                             for k, v in algos.items()})
+        kernels[-1]["launches_models"] = models["launches"][name]
+        kernels[-1]["launches_rig_chain"] = rig_chain["launches"][name]
         if name == "fused_schur_assembly":
             kernels[-1].update(sub_kernel_ms=schur_split,
                                product_step_torch_mm_ms=product_mm_ms)
@@ -2441,6 +2750,10 @@ def main() -> int:
     print(json.dumps({"image_chain": {k: v for k, v in chain.items()
                                       if k != "launches"}}), flush=True)
     print(json.dumps({"merge_and_algorithms": algos}), flush=True)
+    print(json.dumps({"models": {k: v for k, v in models.items()
+                                 if k != "launches"}}), flush=True)
+    print(json.dumps({"rig_chain": {k: v for k, v in rig_chain.items()
+                                    if k != "launches"}}), flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

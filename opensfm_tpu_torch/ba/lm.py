@@ -1,25 +1,32 @@
 """Schur-complement Levenberg-Marquardt bundle adjustment core (PyTorch).
 
-Port of `opensfm_tpu.ba.lm` for the mono perspective configuration: rig
-instances with identity rig cameras, perspective cameras [k1, k2, focal],
-GPS / camera / point priors and up-vector / pan / tilt / roll shot priors.
+Port of `opensfm_tpu.ba.lm`: rig instances and rig cameras (fixed,
+non-identity or optimized), every projection type of
+`geometry/cameras.py` and maps that mix them (type-sorted observation
+segments), GPS / camera / rig-camera / point priors, up-vector / pan /
+tilt / roll shot priors and per-observation depth priors.
 
 Parameters: rig instance poses inst[NI, 6] (angle-axis + translation,
 world-to-instance), rig camera poses rigcam[NR, 6], camera intrinsics
 cam[NC, Pmax] and points points[NP, 3].  The points are eliminated with an
 explicit batched Schur complement; the reduced camera system is dense and
-solved by Cholesky.  The residuals, Jacobians and the cost come from the
-hand-written CUDA kernels of `ops/kernels/ba_resjac.py`; on the dense
-instance-slot layout's fast path (`_fused_dense`) the whole assembly, the
-back-substitution and the cost come from those of `ops/kernels/ba_assemble.py`.
-The kernels run when the tensors lie on a CUDA device (f32 or f64), their
-plain PyTorch versions when they lie on the CPU; the route through the solver
-depends on the problem alone.
+solved by Cholesky.
 
-Not in this slice of the port, and raising NotImplementedError when a
-problem needs them: non-perspective and mixed projection types, rig chains
-(a non-identity or optimized rig camera), depth prior rows, pose-graph
-constraint families with scale variables, and covariances.
+Two routes, chosen by the problem alone as the reference chooses its
+Pallas path: a mono perspective [k1, k2, focal] map with identity rig
+cameras and no depth rows takes the hand-written CUDA kernels (residuals,
+Jacobians and cost from `ops/kernels/ba_resjac.py`; on the dense
+instance-slot layout's fast path, `_fused_dense`, the whole assembly, the
+back-substitution and the cost from `ops/kernels/ba_assemble.py`).  Every
+other problem takes the generic route, the reference's XLA route: the
+residuals of each type segment and their Jacobians from one batched
+forward-mode push (`torch.func.vmap` over `torch.func.jvp`) over the
+segment's tangent directions.  The kernels run when the tensors lie on a
+CUDA device (f32 or f64), their plain PyTorch versions when they lie on the
+CPU; a kernel that fails raises, it never gives way to the generic route.
+
+Not ported, and raising NotImplementedError: cluster scale variables,
+pose-graph constraint families and covariances.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from opensfm_tpu_torch import context, resolve_device
+from opensfm_tpu_torch.geometry import cameras as cam_lib
 from opensfm_tpu_torch.geometry import rotation as rot
 from opensfm_tpu_torch.ops import linalg
 from opensfm_tpu_torch.ops.kernels.ba_assemble import (
@@ -136,7 +144,8 @@ class BAProblem:
     ang_value: Optional[np.ndarray] = None  # [KA] radians
     ang_inv_sd: Optional[np.ndarray] = None  # [KA]
 
-    # Per-observation depth priors (not in this slice: must stay disabled).
+    # Per-observation depth priors (RelativeDepthError): (depth(Xc) - depth)
+    # / sd with the projection robust loss; inv_sd == 0 disables a row.
     obs_depth: Optional[np.ndarray] = None  # [O]
     obs_depth_inv_sd: Optional[np.ndarray] = None  # [O]
     obs_depth_radial: Optional[np.ndarray] = None  # [O] bool
@@ -145,8 +154,8 @@ class BAProblem:
     # = plain quadratic.
     point_prior_loss: Optional[np.ndarray] = None  # [NP]
 
-    # Cluster-SfM scale variables and pose-graph constraint families (not in
-    # this slice: must be absent or empty).
+    # Cluster-SfM scale variables and pose-graph constraint families (not
+    # ported: must be absent or empty).
     scales: Optional[np.ndarray] = None
     opt_scales: Optional[np.ndarray] = None
     rm_i: Optional[np.ndarray] = None
@@ -212,13 +221,15 @@ class BAResult:
     lam: float = 0.0
     covariances: Optional[np.ndarray] = None
     covariance_valid: bool = False
-    route: str = "canonical"  # canonical, dense or fused_dense
+    route: str = "canonical"  # canonical, dense, fused_dense or generic
 
 
 def problem_from_numpy(src) -> BAProblem:
     """A BAProblem from any object with the BAProblem fields (the reference's
     `opensfm_tpu.ba.lm.BAProblem` included): the arrays are taken as they
-    are."""
+    are, the rig cameras, their masks and priors, the depth rows and the
+    type segments (`ptype`, a string or a tuple of (type, start, end))
+    with them."""
     return BAProblem(
         **{f.name: getattr(src, f.name) for f in dataclasses.fields(BAProblem)}
     )
@@ -234,19 +245,151 @@ def _origin(pose6):
     return -rot.rotate(-pose6[..., :3], pose6[..., 3:6])
 
 
-def _residual_data(state, data, loss, loss_threshold):
-    """Per-observation weighted residuals r[O, 2], Jacobians Jc[O, 2, 9]
-    (6 instance pose + [k1, k2, focal]) and Jp[O, 2, 3], already scaled by
-    sqrt(rho'), and the per-observation robust cost.  Every layout (dense
-    instance-slot, canonical (point, slot)) reaches the kernel through its
-    index arrays."""
+def kernel_route(ptype, pmax, with_depth=False, rig_transform=False,
+                 rig_jac=False) -> bool:
+    """The reference's condition for its Pallas path, and so the port's for
+    its CUDA kernels: a perspective [k1, k2, focal] map, identity rig
+    cameras, no depth rows.  Every other problem takes the generic route."""
+    return (ptype == "perspective" and pmax == 3 and not with_depth
+            and not rig_transform and not rig_jac)
+
+
+def _segment_rows(pt, rig_transform, pmax, uv, inv_sd, dep):
+    """res(combo [O, roff + pmax], X [O, 3]) -> [O, K] of one type segment
+    (the reference's `make_batched`): the pose chain through the instance
+    (and the rig camera with `rig_transform`), the projection, the
+    spherical seam wrap, and with `dep` the depth row (radial or z)."""
+    roff = 12 if rig_transform else 6
+
+    def res(combo, X):
+        Xc = rot.rotate(combo[:, 0:3], X) + combo[:, 3:6]
+        if rig_transform:
+            Xc = rot.rotate(combo[:, 6:9], Xc) + combo[:, 9:12]
+        diff = cam_lib.project_torch(pt, Xc, combo[:, roff:roff + pmax]) - uv
+        if pt == "spherical":
+            # Wrap the panorama seam, as the JAX package does (OpenSfM's
+            # own residual is a 3D bearing, ErrorTraits
+            # bundle_adjuster.cc:446).
+            diff = diff - torch.round(diff)
+        out = diff * inv_sd[:, None]
+        if dep is None:
+            return out
+        depth, depth_inv_sd, radial = dep
+        norm = torch.sqrt(torch.sum(Xc * Xc, dim=-1) + 1e-30)
+        r_d = (torch.where(radial, norm, Xc[:, 2]) - depth) * depth_inv_sd
+        return torch.cat([out, r_d[:, None]], dim=1)
+
+    return res
+
+
+def _push_directions(res, combo, X, dirs):
+    """(r [O, K], J [O, K, len(dirs)]) of res(combo, X): one forward-mode
+    push of all tangent directions `dirs` (indices into the D + 3 columns
+    of [combo, X]) at once, batched by `torch.func.vmap` over `jvp`, so a
+    segment's Jacobian is one launch chain however many directions it
+    has."""
+    D = combo.shape[1]
+    basis = torch.eye(D + 3, dtype=combo.dtype, device=combo.device)[dirs]
+
+    def push(e):
+        return torch.func.jvp(
+            res, (combo, X), (e[:D].expand_as(combo), e[D:].expand_as(X)))
+
+    r, J = torch.func.vmap(push)(basis)
+    return r[0], J.permute(1, 2, 0)
+
+
+def _obs_combo(state, data, sl, rig_transform):
+    """[inst | rig camera | camera] rows and points of the observations
+    `sl`, gathered through their index arrays."""
+    inst, rigcam, cam, points = state[:4]
+    parts = [inst[data["obs_inst"][sl]]]
+    if rig_transform:
+        parts.append(rigcam[data["obs_rigcam"][sl]])
+    parts.append(cam[data["obs_cam"][sl]])
+    return torch.cat(parts, dim=1), points[data["obs_point"][sl]]
+
+
+def _depth_rows(data, sl, with_depth):
+    if not with_depth:
+        return None
+    return (data["obs_depth"][sl], data["obs_depth_inv_sd"][sl],
+            data["obs_depth_radial"][sl])
+
+
+def _generic_segments(state, data, ptype, pmax, with_depth, rig_transform):
+    """(res, combo, X) of each (type, start, end) segment of `ptype` (a
+    type names one segment over every observation) on the generic route:
+    its rows' function (`_segment_rows`) and its gathered arguments."""
+    segments = (((ptype, 0, data["obs_uv"].shape[0]),)
+                if isinstance(ptype, str) else ptype)
+    for pt, start, end in segments:
+        sl = slice(start, end)
+        combo, X = _obs_combo(state, data, sl, rig_transform)
+        yield (_segment_rows(pt, rig_transform, pmax, data["obs_uv"][sl],
+                             data["obs_inv_sd"][sl],
+                             _depth_rows(data, sl, with_depth)), combo, X)
+
+
+def _robust_args(r, loss_threshold, with_depth):
+    """The robust loss's arguments of weighted rows r [O, K]: the
+    projection's squared norm and, with the depth row, its square (its own
+    IRLS weight), each over the threshold squared."""
+    a2 = loss_threshold * loss_threshold
+    u = [torch.sum(r[:, :2] * r[:, :2], dim=-1) / a2]
+    if with_depth:
+        u.append(r[:, 2] * r[:, 2] / a2)
+    return u
+
+
+def _residual_data(state, data, loss, loss_threshold, ptype="perspective",
+                   pmax=3, with_depth=False, rig_transform=False,
+                   rig_jac=False, generic=False):
+    """Per-observation weighted residuals r[O, K], Jacobians Jc[O, K, Dc]
+    and Jp[O, K, 3], already scaled by sqrt(rho'), and the per-observation
+    robust cost.  K = 2, or 3 with the depth row (its own IRLS weight, as
+    the reference's RelativeDepthError block sharing the projection loss).
+    Dc = 6 instance pose + [6 rig camera with `rig_jac`] + pmax.
+
+    On the kernel route (not `generic`, see `solver_statics`) the CUDA
+    kernel computes them; every layout reaches it through its index arrays.
+    The generic route pushes each type segment's tangent directions in one
+    batched forward-mode pass (`_push_directions`), skipping the rig
+    camera's six when it is fixed."""
     inst, _, cam, points = state[:4]
     d = data
-    return fused_residual_jacobian(
-        inst, cam, points, d["obs_inst"], d["obs_cam"], d["obs_point"],
-        d["obs_uv"], d["obs_inv_sd"], loss=loss,
-        loss_threshold=loss_threshold,
-    )
+    if not generic:
+        return fused_residual_jacobian(
+            inst, cam, points, d["obs_inst"], d["obs_cam"], d["obs_point"],
+            d["obs_uv"], d["obs_inv_sd"], loss=loss,
+            loss_threshold=loss_threshold,
+        )
+    roff = 12 if rig_transform else 6
+    D = roff + pmax
+    if rig_transform and not rig_jac:
+        dirs = list(range(0, 6)) + list(range(12, D + 3))
+    else:
+        dirs = list(range(D + 3))
+    n_cam_dirs = len(dirs) - 3
+    rs, Jcs, Jps = [], [], []
+    for res, combo, X in _generic_segments(state, d, ptype, pmax, with_depth,
+                                           rig_transform):
+        r_, J_ = _push_directions(res, combo, X, dirs)
+        rs.append(r_)
+        Jcs.append(J_[..., :n_cam_dirs])
+        Jps.append(J_[..., n_cam_dirs:])
+    r, Jc, Jp = (torch.cat(x) if len(x) > 1 else x[0] for x in (rs, Jcs, Jps))
+
+    rho, drho = LOSSES[loss]
+    a2 = loss_threshold * loss_threshold
+    u = _robust_args(r, loss_threshold, with_depth)
+    cost = 0.5 * a2 * rho(u[0])
+    w = drho(u[0])[:, None].expand(r.shape[0], 2)
+    if with_depth:
+        cost = cost + 0.5 * a2 * rho(u[1])
+        w = torch.cat([w, drho(u[1])[:, None]], dim=1)
+    sw = torch.sqrt(torch.clamp_min(w, 1e-12))
+    return r * sw, Jc * sw[..., None], Jp * sw[..., None], cost
 
 
 def _row_jacobian(fn, args, argnum):
@@ -382,11 +525,11 @@ def _ang_res(i6, r6, kind, value, inv_sd):
     return (res * inv_sd)[:, None]
 
 
-def _shot_prior_residuals(state, data, raw=False):
+def _shot_prior_residuals(state, data, raw=False, rig_jac=False):
     """Up-vector and pan/tilt/roll rows on (instance, rig camera) pairs, with
-    Cauchy(1) sqrt-IRLS weights: list of (r[K, M], Ji[K, M, 6], idx_inst)
-    (rig cameras are fixed in this slice, so no rig-camera Jacobian); with
-    raw=True just the unweighted residuals."""
+    Cauchy(1) sqrt-IRLS weights: list of (r[K, M], Ji[K, M, 6], Jr[K, M, 6]
+    or None, idx_inst, idx_rigcam), the rig-camera Jacobian only with
+    `rig_jac`; with raw=True just the unweighted residuals."""
     inst, rigcam = state[0], state[1]
     d = data
     out = []
@@ -395,21 +538,23 @@ def _shot_prior_residuals(state, data, raw=False):
     if d["up_vec"].shape[0] > 0:
         rows.append((_up_res, (inst[d["up_inst"]], rigcam[d["up_rigcam"]],
                                d["up_vec"], d["up_inv_sd"][:, None]),
-                     d["up_inst"]))
+                     d["up_inst"], d["up_rigcam"]))
     if d["ang_value"].shape[0] > 0:
         rows.append((_ang_res, (inst[d["ang_inst"]], rigcam[d["ang_rigcam"]],
                                 d["ang_kind"], d["ang_value"],
                                 d["ang_inv_sd"]),
-                     d["ang_inst"]))
-    for fn, args, idx_i in rows:
+                     d["ang_inst"], d["ang_rigcam"]))
+    for fn, args, idx_i, idx_r in rows:
         r = fn(*args)
         if raw:
             out.append(r)
             continue
         Ji = _row_jacobian(fn, args, 0)
+        Jr = _row_jacobian(fn, args, 1) if rig_jac else None
         s = torch.sum(r * r, dim=-1, keepdim=True)
         sw = torch.sqrt(torch.clamp_min(cauchy_w(s), 1e-12))
-        out.append((r * sw, Ji * sw[..., None], idx_i))
+        out.append((r * sw, Ji * sw[..., None],
+                    None if Jr is None else Jr * sw[..., None], idx_i, idx_r))
     return out
 
 
@@ -546,14 +691,13 @@ def _schur(Ua, Vb):
     return (A @ B).reshape(na, x, nb, y)
 
 
-def _fused_dense(points, ni, pmax, dense):
+def _fused_dense(points, ni, pmax, dense, kernels=True):
     """The reference's conditions for its dense fast path (one fused
-    assembly, back-substitution and cost kernel): the dense layout, a
-    [k1, k2, focal] camera, at most 256 instances and a point count that is
-    a multiple of 128, in f32 or f64.  The projection type, the identity rig
-    and the absence of depth rows hold for every problem this slice
-    solves."""
-    return (dense and pmax == 3 and ni <= 256
+    assembly, back-substitution and cost kernel): the kernel route
+    (`kernels`, see `kernel_route`), the dense layout, a [k1, k2, focal]
+    camera, at most 256 instances and a point count that is a multiple of
+    128, in f32 or f64."""
+    return (kernels and dense and pmax == 3 and ni <= 256
             and points.shape[0] % 128 == 0
             and points.dtype in (torch.float32, torch.float64))
 
@@ -613,28 +757,43 @@ def _build_reduced_system_fused(state, data, lam, loss, loss_threshold, ni,
 
 
 def _build_reduced_system(state, data, lam, loss, loss_threshold, pmax, ni,
-                          nr, nc, dense=False):
-    """Assemble the Schur-reduced camera system in the canonical (point,
-    slot) layout, or the dense instance-slot layout when `dense`
-    (`canonicalize_problem_dense`: slot == instance, T == NI, nc == 1, where
-    every one-hot selector is the identity and disappears).
+                          nr, nc, dense=False, ptype="perspective",
+                          with_depth=False, rig_transform=False,
+                          rig_jac=False, canonical=True, generic=False):
+    """Assemble the Schur-reduced camera system.
+
+    Per-point structure comes from the padded (point, slot) layout: a free
+    reshape when `canonical` (`canonicalize_problem`), a gather through the
+    point -> observation CSR otherwise (mixed-type maps keep their
+    type-sorted observations; the trash slot O reads a zero row).  With
+    `dense` (`canonicalize_problem_dense`: slot == instance, T == NI,
+    nc == 1) every one-hot selector is the identity and disappears.  The
+    rig-camera family "r" (S_RR, S_IR, S_RC, b_r) joins the instance and
+    camera families when a rig camera is optimized (`rig_jac`).
 
     Returns (S, b, back) where `back` carries what back-substitution
     needs."""
     inst, rigcam, cam, points = state[:4]
     np_pts = points.shape[0]
     dtype = points.dtype
-    if dense and nc != 1:
-        raise ValueError("the dense instance-slot layout has one camera")
-    if _fused_dense(points, ni, pmax, dense):
+    if dense and (nc != 1 or rig_jac or not canonical):
+        raise ValueError("the dense instance-slot layout is mono")
+    if _fused_dense(points, ni, pmax, dense, not generic):
         return _build_reduced_system_fused(
             state, data, lam, loss, loss_threshold, ni, nr, nc, pmax)
 
-    r, Jc, Jp, _ = _residual_data(state, data, loss, loss_threshold)
+    r, Jc, Jp, _ = _residual_data(
+        state, data, loss, loss_threshold, ptype=ptype, pmax=pmax,
+        with_depth=with_depth, rig_transform=rig_transform, rig_jac=rig_jac,
+        generic=generic)
     num_obs = r.shape[0]
 
     # Mask Jacobians of fixed parameters (zero rows instead of index games).
-    opt_p = data["opt_points"].to(dtype).repeat_interleave(num_obs // np_pts)
+    if canonical:
+        opt_p = data["opt_points"].to(dtype).repeat_interleave(
+            num_obs // np_pts)
+    else:
+        opt_p = data["opt_points"][data["obs_point"]].to(dtype)
     Jp = Jp * opt_p[:, None, None]
     if dense:
         opt_i_o = data["opt_inst"].to(dtype)[None].expand(np_pts, ni) \
@@ -644,23 +803,40 @@ def _build_reduced_system(state, data, lam, loss, loss_threshold, pmax, ni,
         opt_i_o = data["opt_inst"][data["obs_inst"]].to(dtype)
         opt_c_o = data["opt_cam"][data["obs_cam"]].to(dtype)  # [O, pmax]
     Ji = Jc[:, :, 0:6] * opt_i_o[:, None, None]
-    Jcam = Jc[:, :, 6:] * opt_c_o[:, None, :]
-
-    def padded(x):  # [O, ...] -> [NP, T, ...]
-        return x.reshape((np_pts, -1) + x.shape[1:])
-
-    r_pt = padded(r)  # [NP,T,2]
-    Ji_pt = padded(Ji)  # [NP,T,2,6]
-    Jc_pt = padded(Jcam)  # [NP,T,2,pmax]
-    Jp_pt = padded(Jp)  # [NP,T,2,3]
-
-    if dense:
-        Ei_f = Ec_f = E_i = E_c = None
+    if rig_jac:
+        opt_r_o = data["opt_rigcam"][data["obs_rigcam"]].to(dtype)
+        Jr = Jc[:, :, 6:12] * opt_r_o[:, None, None]
+        Jcam = Jc[:, :, 12:] * opt_c_o[:, None, :]
     else:
-        Ei_f = _one_hot(data["obs_inst"], ni, dtype)  # [O, NI]
-        Ec_f = _one_hot(data["obs_cam"], nc, dtype)
-        E_i = padded(Ei_f)  # [NP,T,NI]
-        E_c = padded(Ec_f)
+        Jr = None
+        Jcam = Jc[:, :, 6:] * opt_c_o[:, None, :]
+
+    if canonical:
+        def padded(x):  # [O, ...] -> [NP, T, ...]
+            return x.reshape((np_pts, -1) + x.shape[1:])
+    else:
+        po = data["point_obs"].long()  # [NP, T], padded with O
+
+        def padded(x):
+            pad = torch.zeros((1,) + x.shape[1:], dtype=x.dtype,
+                              device=x.device)
+            return torch.cat([x, pad])[po]
+
+    r_pt = padded(r)  # [NP,T,K]
+    Jp_pt = padded(Jp)  # [NP,T,K,3]
+    fams = [("i", Ji, "obs_inst", ni), ("c", Jcam, "obs_cam", nc)]
+    if rig_jac:
+        fams.append(("r", Jr, "obs_rigcam", nr))
+    flat, pt_of, E_pt, n_of = {}, {}, {}, {}
+    for name, J, idx, n_blk in fams:
+        # Flat one-hots feed the direct terms as [O, n] products; their
+        # point-layout views feed the Schur factors (a trash slot becomes an
+        # all-zero selector row).
+        E_f = None if dense else _one_hot(data[idx], n_blk, dtype)
+        flat[name] = (E_f, J)
+        pt_of[name] = padded(J)
+        E_pt[name] = None if dense else padded(E_f)
+        n_of[name] = n_blk
 
     # --- point system --------------------------------------------------------
     Hpp = torch.einsum("ptkx,ptky->pxy", Jp_pt, Jp_pt)  # [NP,3,3]
@@ -681,10 +857,9 @@ def _build_reduced_system(state, data, lam, loss, loss_threshold, pmax, ni,
     Hpp_inv = _inv3x3(Hpp) * opt_p_pts
 
     # --- camera-point couplings and Schur factors ----------------------------
-    blocks = [("i", Ji_pt, E_i, ni), ("c", Jc_pt, E_c, nc)]
     G, U, V = {}, {}, {}
-    for name, J_pt, E, n_blk in blocks:
-        if n_blk == 1:
+    for name, J_pt in pt_of.items():
+        if n_of[name] == 1:
             # Single block: the selector is identically 1, so the T axis
             # collapses into the contraction.
             Vg = torch.einsum("ptkx,ptkj->pxj", J_pt, Jp_pt)  # [NP,bdim,3]
@@ -700,14 +875,11 @@ def _build_reduced_system(state, data, lam, loss, loss_threshold, pmax, ni,
             U[name] = Aa  # slot t IS block index a
             V[name] = Ga
             continue
+        E = E_pt[name]
         U[name] = torch.einsum("pta,ptxk->paxk", E, Aa)  # [NP,n,bdim,3]
         V[name] = torch.einsum("pta,ptxk->paxk", E, Ga)
 
     # --- block families of S and b -------------------------------------------
-    flat = {"i": (Ei_f, Ji), "c": (Ec_f, Jcam)}
-    pt_of = {"i": Ji_pt, "c": Jc_pt}
-    n_of = {"i": ni, "c": nc}
-
     def direct_diag(name):
         # Same-obs block-diagonal contributions (one block per obs).
         E, Jf = flat[name]
@@ -743,19 +915,23 @@ def _build_reduced_system(state, data, lam, loss, loss_threshold, pmax, ni,
     S_II = _expand_diag(direct_diag("i"), ni) - _schur(U["i"], V["i"])
     S_CC = _expand_diag(direct_diag("c"), nc) - _schur(U["c"], V["c"])
     S_IC = direct_cross("i", "c") - _schur(U["i"], V["c"])
-    # Rig cameras are all fixed in this slice: their rows come only from the
-    # identity padding in _assemble_S; every coupling block is zero.
     zeros = dict(dtype=dtype, device=points.device)
-    S_RR = torch.zeros((nr, 6, nr, 6), **zeros)
-    S_IR = torch.zeros((ni, 6, nr, 6), **zeros)
-    S_RC = torch.zeros((nr, 6, nc, pmax), **zeros)
+    if rig_jac:
+        S_RR = _expand_diag(direct_diag("r"), nr) - _schur(U["r"], V["r"])
+        S_IR = direct_cross("i", "r") - _schur(U["i"], V["r"])
+        S_RC = direct_cross("r", "c") - _schur(U["r"], V["c"])
+    else:
+        # Rig cameras all fixed: their rows come only from the identity
+        # padding in _assemble_S; every coupling block is zero.
+        S_RR = torch.zeros((nr, 6, nr, 6), **zeros)
+        S_IR = torch.zeros((ni, 6, nr, 6), **zeros)
+        S_RC = torch.zeros((nr, 6, nc, pmax), **zeros)
 
     Hib = torch.einsum("pkj,pj->pk", Hpp_inv, bp)  # [NP,3]
 
-    def rhs(name, E_pt):
+    def rhs(name):
         E_f, J_f = flat[name]
-        n_blk = n_of[name]
-        if n_blk == 1:
+        if n_of[name] == 1:
             direct = torch.einsum("okx,ok->x", J_f, r)[None]
             gschur = torch.einsum("pxk,pk->x", V[name][:, 0], Hib)[None]
         elif dense:
@@ -765,29 +941,30 @@ def _build_reduced_system(state, data, lam, loss, loss_threshold, pmax, ni,
             JTr = torch.einsum("okx,ok->ox", J_f, r)  # [O, bdim]
             direct = E_f.T @ JTr  # [n, bdim]
             GH = torch.einsum("ptxk,pk->ptx", G[name], Hib)  # [NP,T,bdim]
-            gschur = torch.einsum("pta,ptx->ax", E_pt, GH)
+            gschur = torch.einsum("pta,ptx->ax", E_pt[name], GH)
         return (direct - gschur).reshape(-1)
 
-    b_i = rhs("i", E_i)
-    b_r = torch.zeros(nr * 6, **zeros)
-    b_c = rhs("c", E_c)
+    b_i = rhs("i")
+    b_r = rhs("r") if rig_jac else torch.zeros(nr * 6, **zeros)
+    b_c = rhs("c")
 
     back = dict(
-        Ji=Ji, Jcam=Jcam, Jp_pt=Jp_pt, Hpp_inv=Hpp_inv, bp=bp,
-        obs_inst=data["obs_inst"], obs_cam=data["obs_cam"], padded=padded,
-        dense=dense,
+        Ji=Ji, Jr=Jr, Jcam=Jcam, Jp_pt=Jp_pt, Hpp_inv=Hpp_inv, bp=bp,
+        obs_inst=data["obs_inst"], obs_rigcam=data["obs_rigcam"],
+        obs_cam=data["obs_cam"], padded=padded, dense=dense,
     )
     S, b = _assemble_S(
         state, data, lam, S_II, S_RR, S_IR, S_RC, S_IC, S_CC, b_i, b_r, b_c,
-        ni, nr, nc, pmax,
+        ni, nr, nc, pmax, rig_jac=rig_jac,
     )
     return S, b, back
 
 
 def _assemble_S(state, data, lam, S_II, S_RR, S_IR, S_RC, S_IC, S_CC,
-                b_i, b_r, b_c, ni, nr, nc, pmax):
+                b_i, b_r, b_c, ni, nr, nc, pmax, rig_jac=False):
     """Epilogue: prior families + block assembly + identity rows for fixed
-    parameters + Marquardt damping + symmetrization."""
+    parameters + Marquardt damping + symmetrization.  The rig-camera
+    priors and the shot priors' rig-camera rows enter with `rig_jac`."""
     dtype = state[3].dtype
 
     for pr, pJ, kind in _prior_residuals(state, data):
@@ -804,10 +981,18 @@ def _assemble_S(state, data, lam, S_II, S_RR, S_IR, S_RC, S_IC, S_CC,
             D = torch.einsum("nki,nkj->nij", pJm, pJm)
             S_CC = S_CC + _expand_diag(D, nc)
             b_c = b_c + torch.einsum("nki,nk->ni", pJm, pr).reshape(nc * pmax)
-        # rigcam: every rig camera is fixed, its prior rows are masked out.
+        elif rig_jac:  # rigcam; with every rig camera fixed, masked out
+            mask = data["opt_rigcam"].to(dtype)[:, None, None]
+            D = torch.einsum("nki,nkj->nij", pJ, pJ) * mask
+            S_RR = S_RR + _expand_diag(D, nr)
+            b_r = b_r + (
+                torch.einsum("nki,nk->ni", pJ, pr) * mask[:, :, 0]
+            ).reshape(nr * 6)
 
-    # Shot priors (up-vector / pan / tilt / roll) on the instance side.
-    for pr, Ji_u, idx_i in _shot_prior_residuals(state, data):
+    # Shot priors (up-vector / pan / tilt / roll): instance side, and the
+    # rig-camera side with `rig_jac`.
+    for pr, Ji_u, Jr_u, idx_i, idx_r in _shot_prior_residuals(
+            state, data, rig_jac=rig_jac):
         mi = data["opt_inst"][idx_i].to(dtype)[:, None, None]
         Ji_u = Ji_u * mi
         Ei_u = _one_hot(idx_i, ni, dtype)  # [K, NI]
@@ -817,6 +1002,19 @@ def _assemble_S(state, data, lam, S_II, S_RR, S_IR, S_RC, S_IC, S_CC,
         b_i = b_i + torch.einsum(
             "ka,kxi,kx->ai", Ei_u, Ji_u, pr
         ).reshape(ni * 6)
+        if rig_jac:
+            mr = data["opt_rigcam"][idx_r].to(dtype)[:, None, None]
+            Jr_u = Jr_u * mr
+            Er_u = _one_hot(idx_r, nr, dtype)
+            S_RR = S_RR + _expand_diag(
+                torch.einsum("ka,kxi,kxj->aij", Er_u, Jr_u, Jr_u), nr
+            )
+            S_IR = S_IR + torch.einsum(
+                "ka,kxi,kxj,kb->aibj", Ei_u, Ji_u, Jr_u, Er_u
+            )
+            b_r = b_r + torch.einsum(
+                "ka,kxi,kx->ai", Er_u, Jr_u, pr
+            ).reshape(nr * 6)
 
     di, dr, dcam = ni * 6, nr * 6, nc * pmax
     S = torch.cat(
@@ -848,10 +1046,11 @@ def _assemble_S(state, data, lam, S_II, S_RR, S_IR, S_RC, S_IC, S_CC,
     return S, b
 
 
-def _back_substitute(back, dx_i, dx_cam, ni, pmax):
+def _back_substitute(back, dx_i, dx_cam, ni, pmax, dx_r=None):
     """Recover the point updates dx_p from the reduced-system solution:
-    u_p = sum_{o in p} Jp_o' (J_o dx_o), dx_p = Hpp_inv (bp - u_p).  After
-    the fused assembly the kernel recomputes the Jacobians instead."""
+    u_p = sum_{o in p} Jp_o' (J_o dx_o), dx_p = Hpp_inv (bp - u_p), the rig
+    cameras' dx_r included when they are optimized.  After the fused
+    assembly the kernel recomputes the Jacobians instead."""
     fused = back.get("fused")
     if fused is not None:
         return fused_back_substitute(
@@ -873,17 +1072,23 @@ def _back_substitute(back, dx_i, dx_cam, ni, pmax):
         torch.einsum("okx,ox->ok", back["Ji"], dxi_o)
         + torch.einsum("okx,ox->ok", back["Jcam"], dxc_o)
     )  # [O, K]
+    if back["Jr"] is not None:
+        tmp = tmp + torch.einsum("okx,ox->ok", back["Jr"],
+                                 dx_r[back["obs_rigcam"]])
     tmp_pt = back["padded"](tmp)  # [NP, T, K]
     u = torch.einsum("ptkx,ptk->px", back["Jp_pt"], tmp_pt)  # [NP, 3]
     return torch.einsum("pkj,pj->pk", Hpp_inv, bp - u)
 
 
 def _lm_step(state, data, lam, loss, loss_threshold, pmax, ni, nr, nc,
-             dense=False):
-    """One damped LM step: assemble, Schur-eliminate points, solve, update."""
+             dense=False, **statics):
+    """One damped LM step: assemble, Schur-eliminate points, solve, update.
+    `statics` are `solver_statics`' (ptype, depth, rig and layout flags);
+    without them, the mono perspective kernel route."""
     inst, rigcam, cam, points = state[:4]
     S, b, back = _build_reduced_system(
         state, data, lam, loss, loss_threshold, pmax, ni, nr, nc, dense,
+        **statics,
     )
     # S is SPD after damping + identity rows.
     dx_c = linalg.solve_spd(S, b)
@@ -891,28 +1096,42 @@ def _lm_step(state, data, lam, loss, loss_threshold, pmax, ni, nr, nc,
     dx_i = dx_c[:di].reshape(ni, 6)
     dx_r = dx_c[di:di + dr].reshape(nr, 6)
     dx_cam = dx_c[di + dr:di + dr + dcam].reshape(nc, pmax)
-    dx_p = _back_substitute(back, dx_i, dx_cam, ni, pmax)
+    dx_p = _back_substitute(back, dx_i, dx_cam, ni, pmax, dx_r=dx_r)
     return (inst - dx_i, rigcam - dx_r, cam - dx_cam, points - dx_p)
 
 
-def _total_cost(state, data, loss, loss_threshold, dense=False):
-    """Objective only (the accept/reject trial): the reprojection cost from
-    a cost kernel plus every prior family.  The dense layout with one camera
-    and a point count that is a multiple of 128 takes the dense cost kernel,
-    which reads no index arrays (the reference's condition)."""
+def _total_cost(state, data, loss, loss_threshold, dense=False,
+                ptype="perspective", pmax=3, with_depth=False,
+                rig_transform=False, rig_jac=False, canonical=True,
+                generic=False):
+    """Objective only (the accept/reject trial): the reprojection cost plus
+    every prior family.  On the kernel route the cost comes from a cost
+    kernel: the dense layout with one camera and a point count that is a
+    multiple of 128 takes the dense cost kernel, which reads no index
+    arrays (the reference's condition).  The generic route evaluates each
+    type segment's rows (`_segment_rows`) with no Jacobian."""
     inst, rigcam, cam, points = state[:4]
     d = data
-    if dense and cam.shape[0] == 1 and points.shape[0] % 128 == 0:
-        total = fused_cost_dense(
-            inst, cam, points, d["obs_uv"], d["obs_inv_sd"], loss=loss,
-            loss_threshold=loss_threshold,
-        )
+    if not generic:
+        if dense and cam.shape[0] == 1 and points.shape[0] % 128 == 0:
+            total = fused_cost_dense(
+                inst, cam, points, d["obs_uv"], d["obs_inv_sd"], loss=loss,
+                loss_threshold=loss_threshold,
+            )
+        else:
+            total = fused_cost(
+                inst, cam, points, d["obs_inst"], d["obs_cam"],
+                d["obs_point"], d["obs_uv"], d["obs_inv_sd"], loss=loss,
+                loss_threshold=loss_threshold,
+            )
     else:
-        total = fused_cost(
-            inst, cam, points, d["obs_inst"], d["obs_cam"], d["obs_point"],
-            d["obs_uv"], d["obs_inv_sd"], loss=loss,
-            loss_threshold=loss_threshold,
-        )
+        rho, _ = LOSSES[loss]
+        a2 = loss_threshold * loss_threshold
+        total = torch.zeros((), dtype=points.dtype, device=points.device)
+        for res, combo, X in _generic_segments(state, d, ptype, pmax,
+                                               with_depth, rig_transform):
+            for u in _robust_args(res(combo, X), loss_threshold, with_depth):
+                total = total + torch.sum(0.5 * a2 * rho(u))
     for pr, _, _ in _prior_residuals(state, data, with_jac=False):
         total = total + 0.5 * torch.sum(pr * pr)
     rho_c = LOSSES["CauchyLoss"][0]  # shot priors carry Cauchy(1)
@@ -923,7 +1142,7 @@ def _total_cost(state, data, loss, loss_threshold, dense=False):
 
 
 def _lm_solve(state, data, lam0, tol, max_iterations, loss, loss_threshold,
-              pmax, ni, nr, nc, dense=False):
+              pmax, ni, nr, nc, dense=False, **statics):
     """The damping loop on the host, with the reference's exact policy:
     accept only a finite drop in cost; lam / 3 (floored at 1e-12) on accept,
     lam * 10 (capped at 1e8) on reject; stop after 16 consecutive rejects,
@@ -932,13 +1151,14 @@ def _lm_solve(state, data, lam0, tol, max_iterations, loss, loss_threshold,
     working dtype, as in the reference's device loop."""
     sdt = np.float32 if state[3].dtype == torch.float32 else np.float64
     kw = dict(loss=loss, loss_threshold=loss_threshold)
-    cost0 = sdt(_total_cost(state, data, dense=dense, **kw).item())
+    ckw = dict(kw, dense=dense, pmax=pmax, **statics)
+    cost0 = sdt(_total_cost(state, data, **ckw).item())
     cost, lam, tol = cost0, sdt(lam0), sdt(tol)
     rejects = accepted = trials = 0
     while trials < 16 * max_iterations:
         new_st = _lm_step(state, data, float(lam), pmax=pmax, ni=ni, nr=nr,
-                          nc=nc, dense=dense, **kw)
-        new_cost = sdt(_total_cost(new_st, data, dense=dense, **kw).item())
+                          nc=nc, dense=dense, **kw, **statics)
+        new_cost = sdt(_total_cost(new_st, data, **ckw).item())
         accept = bool(np.isfinite(new_cost) and new_cost < cost)
         rel = (cost - new_cost) / max(cost, sdt(1e-30))
         trials += 1
@@ -968,27 +1188,8 @@ def _single_ptype(ptype):
 
 
 def _check_supported(problem: BAProblem) -> None:
-    """Raise NotImplementedError for what this slice does not port."""
-    if not isinstance(problem.ptype, str):
-        raise NotImplementedError(
-            "mixed projection types are not ported yet"
-        )
-    if problem.ptype != "perspective":
-        raise NotImplementedError(
-            f"projection type {problem.ptype!r} is not ported yet"
-        )
-    if problem.cam.shape[1] != 3:
-        raise NotImplementedError(
-            "camera tables wider than [k1, k2, focal] are not ported yet"
-        )
-    if bool(np.asarray(problem.opt_rigcam).any()) or float(
-        np.abs(np.asarray(problem.rigcam)).max(initial=0.0)
-    ) > 1e-12:
-        raise NotImplementedError("rig chains are not ported yet")
-    if problem.obs_depth_inv_sd is not None and bool(
-        np.any(np.asarray(problem.obs_depth_inv_sd) > 0)
-    ):
-        raise NotImplementedError("depth prior rows are not ported yet")
+    """Raise NotImplementedError for what the port does not have: cluster
+    scale variables and pose-graph constraint families."""
     if problem.scales is not None and len(problem.scales) > 0:
         raise NotImplementedError("scale variables are not ported yet")
     for key in _GRAPH_KEYS:
@@ -999,11 +1200,38 @@ def _check_supported(problem: BAProblem) -> None:
             )
 
 
+def solver_statics(problem: BAProblem, dense: bool) -> dict:
+    """The static configuration of a laid-out problem's solve, as the
+    reference derives it (`bundle_adjust`): the type segments, the depth
+    rows, the rig chain (`rig_jac` when a rig camera is optimized, then its
+    six Jacobian columns; `rig_transform` when one is not the identity,
+    then the second rotation), the layout (canonical unless the types
+    mix), and the route: `generic` unless `kernel_route` holds.  The dense
+    layout takes mono problems only (`canonicalize_problem_dense`)."""
+    rig_jac = bool(np.asarray(problem.opt_rigcam).any())
+    rig_transform = rig_jac or float(
+        np.abs(np.asarray(problem.rigcam)).max(initial=0.0)) > 1e-12
+    depth_inv_sd = problem.obs_depth_inv_sd
+    with_depth = depth_inv_sd is not None and bool(
+        np.any(np.asarray(depth_inv_sd) > 0))
+    pmax = problem.cam.shape[1]
+    return dict(
+        ptype=problem.ptype, pmax=pmax, with_depth=with_depth,
+        rig_transform=rig_transform, rig_jac=rig_jac,
+        canonical=isinstance(problem.ptype, str),
+        generic=not kernel_route(problem.ptype, pmax, with_depth,
+                                 rig_transform, rig_jac),
+    )
+
+
 def device_problem(problem: BAProblem, dtype: torch.dtype,
                    device: torch.device):
     """Lay `problem` out for the solver (dense instance-slot grid when it
-    fits, else the canonical (point, slot) layout) and move it to `device`.
-    Returns (laid-out problem, dense flag, state tuple, data dict)."""
+    fits, else the canonical (point, slot) layout; a map that mixes types
+    keeps its type-sorted observations) and move it to `device`.
+    Returns (laid-out problem, dense flag, state tuple, data dict);
+    `solver_statics(problem, dense)` gives the rest of the solve's
+    configuration."""
     problem = dataclasses.replace(problem, ptype=_single_ptype(problem.ptype))
     _check_supported(problem)
     problem, dense = canonicalize_problem_dense(problem)
@@ -1020,6 +1248,7 @@ def device_problem(problem: BAProblem, dtype: torch.dtype,
     def b8(x):
         return torch.as_tensor(np.asarray(x), dtype=torch.bool, device=device)
 
+    num_obs = len(problem.obs_uv)
     state = (f(problem.inst), f(problem.rigcam), f(problem.cam),
              f(problem.points))
     data = {
@@ -1027,7 +1256,9 @@ def device_problem(problem: BAProblem, dtype: torch.dtype,
         "obs_inv_sd": f(problem.obs_inv_sd),
         "obs_point": i32(problem.obs_point),
         "obs_inst": i32(problem.obs_inst),
+        "obs_rigcam": i32(problem.obs_rigcam),
         "obs_cam": i32(problem.obs_cam),
+        "point_obs": i32(problem.point_obs),
         "gps_pos": f(problem.gps_pos),
         "gps_inv_sd": f(problem.gps_inv_sd),
         "cam_prior": f(problem.cam_prior),
@@ -1050,6 +1281,11 @@ def device_problem(problem: BAProblem, dtype: torch.dtype,
         "ang_rigcam": i32(opt(problem.ang_rigcam, np.zeros(0))),
         "ang_value": f(opt(problem.ang_value, np.zeros(0))),
         "ang_inv_sd": f(opt(problem.ang_inv_sd, np.zeros(0))),
+        "obs_depth": f(opt(problem.obs_depth, np.zeros(num_obs))),
+        "obs_depth_inv_sd": f(opt(problem.obs_depth_inv_sd,
+                                  np.zeros(num_obs))),
+        "obs_depth_radial": b8(opt(problem.obs_depth_radial,
+                                   np.zeros(num_obs, bool))),
     }
     if problem.point_prior_loss is not None and bool(
         np.any(np.asarray(problem.point_prior_loss) > 0)
@@ -1067,7 +1303,9 @@ def bundle_adjust(
     compute_covariances: bool = False,
     device=None,
 ) -> BAResult:
-    """Run LM to convergence on `device` (CUDA unless told otherwise)."""
+    """Run LM to convergence on `device` (CUDA unless told otherwise).  The
+    result names the route its solve took: `fused_dense`, `dense` or
+    `canonical` on the kernel route, `generic` otherwise."""
     if compute_covariances:
         raise NotImplementedError("covariances are not ported yet")
     device = resolve_device(device)
@@ -1076,15 +1314,20 @@ def bundle_adjust(
         torch.backends.cuda.matmul.allow_tf32 = False
     problem, dense, state, data = device_problem(problem, dtype, device)
     ni, nr, nc = len(problem.inst), len(problem.rigcam), len(problem.cam)
-    route = ("fused_dense" if _fused_dense(state[3], ni, problem.cam.shape[1],
-                                           dense)
-             else "dense" if dense else "canonical")
+    statics = solver_statics(problem, dense)
+    pmax = statics.pop("pmax")
+    if statics["generic"]:
+        route = "generic"
+    elif _fused_dense(state[3], ni, pmax, dense):
+        route = "fused_dense"
+    else:
+        route = "dense" if dense else "canonical"
 
     context.record_dispatch("bundle_lm_solve")
     state, cost0, cost1, lam1, accepted = _lm_solve(
         state, data, initial_lambda, tol, int(max_iterations),
         loss=problem.loss, loss_threshold=float(problem.loss_threshold),
-        pmax=problem.cam.shape[1], ni=ni, nr=nr, nc=nc, dense=dense,
+        pmax=pmax, ni=ni, nr=nr, nc=nc, dense=dense, **statics,
     )
     return BAResult(
         inst=state[0].cpu().numpy(),

@@ -2,7 +2,7 @@
 `opensfm/commands/__init__.py:33-57`).  The port registers the stages from
 images to a reconstruction: `extract_metadata`, `detect_features`,
 `match_features`, `create_tracks`, `reconstruct`, `reconstruct_from_prior`,
-`extend_reconstruction` and `bundle`."""
+`extend_reconstruction`, `bundle` and `create_rig`."""
 
 from opensfm_tpu_torch.commands.command import CommandBase  # noqa: F401
 from opensfm_tpu_torch.commands.command_runner import command_runner  # noqa: F401
@@ -11,6 +11,7 @@ from opensfm_tpu_torch.commands.command_runner import command_runner  # noqa: F4
 def opensfm_commands():
     from opensfm_tpu_torch.commands import (
         bundle,
+        create_rig,
         create_tracks,
         detect_features,
         extend_reconstruction,
@@ -23,4 +24,5 @@ def opensfm_commands():
     return [extract_metadata.Command(), detect_features.Command(),
             match_features.Command(), create_tracks.Command(),
             reconstruct.Command(), reconstruct_from_prior.Command(),
-            bundle.Command(), extend_reconstruction.Command()]
+            bundle.Command(), extend_reconstruction.Command(),
+            create_rig.Command()]

@@ -366,13 +366,18 @@ class DataSet(DataSetBase):
 
     # -- subsets (rig calibration) --------------------------------------------
     def subset(self, name: str, images_subset: List[str]) -> "DataSet":
-        """Symlinked sub-dataset with a subset of images (dataset.py:658)."""
+        """Symlinked sub-dataset with a subset of images (dataset.py:658):
+        the config, the camera models and their overrides (so that the
+        subset's `extract_metadata`, which writes through the linked
+        camera_models.json, keeps every override), the reference frame,
+        and each image with its EXIF and features."""
         subset_path = self._fp(name)
         os.makedirs(os.path.join(subset_path, "images"), exist_ok=True)
         os.makedirs(os.path.join(subset_path, "exif"), exist_ok=True)
         os.makedirs(os.path.join(subset_path, "features"), exist_ok=True)
         os.makedirs(os.path.join(subset_path, "matches"), exist_ok=True)
-        for filename in ("config.yaml", "camera_models.json", "reference_lla.json"):
+        for filename in ("config.yaml", "camera_models.json",
+                         "camera_models_overrides.json", "reference_lla.json"):
             src = self._fp(filename)
             dst = os.path.join(subset_path, filename)
             if os.path.isfile(src) and not os.path.isfile(dst):

@@ -2,9 +2,10 @@
 
 Copy of `opensfm_tpu.geometry.cameras`: each model is `affine ∘ distortion ∘
 projection`, written once as array code parameterized by the array module
-(`numpy` for the host-side `Camera` shell).  `project_torch` is the batched
-torch form of `project`; this slice of the port has it for `perspective`
-only and raises NotImplementedError for the other types.
+(`numpy` for the host-side `Camera` shell, `torch` for the device).
+`project_torch` is the batched torch form of `project` for all ten types,
+which the bundle adjuster's generic route differentiates in forward mode;
+`bearing(..., xp=torch)` casts rays through any model.
 
 Parameter vector layouts follow the reference's `Camera::types_` ordering
 (geometry/src/camera.cc), e.g. perspective = [k1, k2, focal].
@@ -338,16 +339,16 @@ def project(ptype: str, point, params, xp=np):
 
 
 def project_torch(ptype: str, point, params):
-    """Batched torch `project`: camera-frame points [..., 3] and parameters
-    [..., P] (in `PARAMS[ptype]` order) -> normalized image coords [..., 2]."""
-    if ptype != "perspective":
-        raise NotImplementedError(
-            f"torch projection of {ptype!r} is not ported yet"
-        )
-    k1, k2, focal = params[..., 0:1], params[..., 1:2], params[..., 2:3]
-    uv = point[..., :2] / point[..., 2:3]
-    r2 = (uv * uv).sum(dim=-1, keepdim=True)
-    return uv * (1.0 + r2 * (k1 + r2 * k2)) * focal
+    """Batched torch `project` for every projection type: camera-frame
+    points [..., 3] and parameters [..., P] (in `PARAMS[ptype]` order; wider
+    rows are read only at their type's columns) -> normalized image coords
+    [..., 2].  Differentiable in forward mode (`torch.func.jvp`, under
+    `torch.func.vmap` too): the guarded branches (fisheye's optical axis)
+    keep the derivatives finite.  The spherical seam is not wrapped here;
+    the bundle adjuster's residual wraps it."""
+    import torch
+
+    return project(ptype, point, params, xp=torch)
 
 
 def bearing(ptype: str, uv, params, xp=np):

@@ -14,6 +14,9 @@ optional words, EXIF with GPS and the camera; it returns which point each
 feature observes, and `match_scores` grades written matches against it.
 `matching_scene` gives the true shots and points of such a dataset, and
 `grade_reconstruction` grades a reconstruction of it against them.
+`make_model_problem` and `write_matching_dataset(camera_types=...)` give
+the same scenes through any camera model, `make_model_problem` also with
+rig instances (fixed or optimized rig cameras) and depth priors.
 """
 
 from __future__ import annotations
@@ -136,6 +139,141 @@ def make_problem(n_shots=16, n_points=512, seed=0, track_window=None):
     )
 
 
+# Camera parameters of each projection type for the synthetic scenes, in
+# `cameras.PARAMS` order, every distortion term away from zero.
+MODEL_PARAMS = {
+    "perspective": CAMERA,
+    "brown": (-0.05, 0.01, 0.001, 0.001, -0.0005, 0.85, 1.0, 0.01, -0.005),
+    "fisheye": (-0.02, 0.003, 0.6),
+    "fisheye_opencv": (-0.02, 0.003, 0.0005, -0.0001, 0.6, 1.0, 0.005,
+                       -0.003),
+    "fisheye62": (-0.02, 0.003, 0.0005, -0.0001, 2e-5, -1e-5, 0.0005,
+                  -0.0003, 0.6, 1.0, 0.005, -0.003),
+    "fisheye624": (-0.02, 0.003, 0.0005, -0.0001, 2e-5, -1e-5, 0.0005,
+                   -0.0003, 0.0004, -0.0002, 0.0003, 0.0001, 0.6, 1.0,
+                   0.005, -0.003),
+    "spherical": (),
+    "dual": (0.5, -0.03, 0.002, 0.7),
+    "radial": (-0.05, 0.002, 0.85, 1.0, 0.01, -0.005),
+    "simple_radial": (-0.05, 0.85, 1.0, 0.01, -0.005),
+}
+LOG_SCALE_PARAMS = ("focal", "aspect_ratio")  # the builder's log-prior dims
+
+
+def make_model_problem(n_shots=16, n_points=512, seed=0, track_window=None,
+                       camera_types="brown", rig_cameras=1,
+                       optimize_rig=False, depth=None) -> BAProblem:
+    """A synthetic circle-scene BA problem on any camera models, rigs and
+    depth priors: `make_problem`'s shots and points, each shot i seen
+    through a camera of type `camera_types[i]` (one string: every shot;
+    one camera per distinct type, parameters MODEL_PARAMS, a perturbed
+    start and a prior at the truth; observations sorted by type into
+    segments when the types mix).
+
+    With `rig_cameras` C > 1 the shots are grouped C by C into rig
+    instances: instance j is shot j C's pose, and rig camera k the
+    transform from it to shot j C + k (the same for every j on the evenly
+    spaced circle), so rig camera 0 is the identity and the others are
+    not.  `optimize_rig` optimizes every rig camera from a perturbed start,
+    with a prior (sd 0.1) at that start as the builder sets it.  `depth`
+    ("radial" or "z") adds a depth prior row to every observation: the true
+    depth times (1 + 0.01 N(0, 1)), with that 1 % as its sd."""
+    rng = np.random.default_rng(seed)
+    types = ([camera_types] * n_shots if isinstance(camera_types, str)
+             else list(camera_types))
+    if len(types) != n_shots or n_shots % rig_cameras:
+        raise ValueError("one camera type per shot, whole rig instances")
+    kinds = sorted(set(types))
+    pmax = max(max(len(cl.PARAMS[t]) for t in kinds), 1)
+    nc = len(kinds)
+    cam = np.zeros((nc, pmax))
+    opt_cam = np.zeros((nc, pmax), bool)
+    log_mask = np.zeros((nc, pmax), bool)
+    for c, t in enumerate(kinds):
+        n = len(cl.PARAMS[t])
+        cam[c, :n] = MODEL_PARAMS[t]
+        opt_cam[c, :n] = True
+        log_mask[c, :n] = [name in LOG_SCALE_PARAMS for name in cl.PARAMS[t]]
+    shot_cam = np.array([kinds.index(t) for t in types])
+
+    points = rng.uniform(-4, 4, (n_points, 3))
+    shots = circle_shots(n_shots)
+    K = n_shots if track_window is None else int(track_window)
+    near = (np.tile(np.arange(n_shots), (n_points, 1)) if track_window is None
+            else nearest_shots(points, n_shots, K))
+    obs_point = np.repeat(np.arange(n_points, dtype=np.int64), K)
+    obs_shot = near.reshape(-1).astype(np.int64)
+    Rm = np.stack([Pose(s[:3], s[3:]).get_rotation_matrix() for s in shots])
+    pc = np.einsum("oij,oj->oi", Rm[obs_shot], points[obs_point]) \
+        + shots[obs_shot, 3:]
+    obs_cam = shot_cam[obs_shot]
+    obs_uv = np.zeros((len(obs_point), 2))
+    for c, t in enumerate(kinds):
+        sel = obs_cam == c
+        obs_uv[sel] = cl.project(t, pc[sel], cam[c], xp=np)
+    obs_uv = obs_uv + rng.normal(0, NOISE, obs_uv.shape)
+    if depth is not None:
+        true_d = (np.linalg.norm(pc, axis=1) if depth == "radial"
+                  else pc[:, 2])
+        obs_depth = true_d * (1.0 + 0.01 * rng.normal(size=len(true_d)))
+
+    # Rig instances: the first shot of each group, and the rig cameras.
+    C = rig_cameras
+    n_inst = n_shots // C
+    inst = shots[::C].copy()
+    base = Pose(shots[0, :3], shots[0, 3:])
+    rigcam = np.zeros((C, 6))
+    for k in range(1, C):
+        rel = Pose(shots[k, :3], shots[k, 3:]).compose(base.inverse())
+        rigcam[k] = np.concatenate([rel.rotation, rel.translation])
+    cam_start = cam + rng.normal(0, 0.002, cam.shape) * opt_cam
+    inst_start = inst + rng.normal(0, 0.01, inst.shape)
+    rig_start = rigcam.copy()
+    if optimize_rig:
+        rig_start[1:] += rng.normal(0, 0.005, (C - 1, 6))
+    points_start = points + rng.normal(0, 0.05, points.shape)
+
+    O = len(obs_point)
+    order = np.argsort(obs_cam, kind="stable") if nc > 1 else np.arange(O)
+    segments = []
+    for c, t in enumerate(kinds):
+        idx = np.flatnonzero(obs_cam[order] == c)
+        if len(idx):
+            segments.append((t, int(idx[0]), int(idx[-1]) + 1))
+    point_obs = np.empty((n_points, K), dtype=np.int64)
+    rank = np.empty(O, dtype=np.int64)
+    rank[order] = np.arange(O)
+    point_obs[:] = rank.reshape(n_points, K)
+    gps = np.array([Pose(s[:3], s[3:]).get_origin() for s in inst])
+
+    def sorted_(x):
+        return np.asarray(x)[order]
+
+    extra = {}
+    if depth is not None:
+        extra = dict(obs_depth=sorted_(obs_depth),
+                     obs_depth_inv_sd=sorted_(1.0 / (0.01 * true_d)),
+                     obs_depth_radial=np.full(O, depth == "radial"))
+    return BAProblem(
+        inst=inst_start, rigcam=rig_start, cam=cam_start,
+        points=points_start, obs_uv=sorted_(obs_uv),
+        obs_inv_sd=np.full(O, 250.0), obs_point=sorted_(obs_point),
+        obs_inst=sorted_(obs_shot // C), obs_rigcam=sorted_(obs_shot % C),
+        obs_cam=sorted_(obs_cam), point_obs=point_obs,
+        gps_pos=gps, gps_inv_sd=np.full(n_inst, 1.0),
+        cam_prior=cam.copy(), cam_prior_inv_sd=np.full((nc, pmax), 100.0)
+        * opt_cam, cam_log_mask=log_mask,
+        rigcam_prior=rig_start.copy(),
+        rigcam_prior_inv_sd=np.full((C, 6), 10.0 if optimize_rig else 0.0),
+        point_prior=np.zeros((n_points, 3)),
+        point_prior_inv_sd=np.zeros((n_points, 3)),
+        opt_inst=np.ones(n_inst, bool), opt_rigcam=np.full(C, optimize_rig),
+        opt_cam=opt_cam, opt_points=np.ones(n_points, bool),
+        ptype=kinds[0] if nc == 1 else tuple(segments),
+        loss="SoftLOneLoss", loss_threshold=1.0, **extra,
+    )
+
+
 def shot_id(i: int) -> str:
     return f"shot_{i:05d}.jpg"
 
@@ -225,7 +363,8 @@ def write_matching_dataset(path: str, n_shots: int = 32,
                            n_points: int = 16384, track_window: int = 8,
                            features_per_image: int = 8192, seed: int = 0,
                            undistorted: bool = False, words: bool = False,
-                           config: Optional[Dict[str, Any]] = None
+                           config: Optional[Dict[str, Any]] = None,
+                           camera_types: Optional[List[str]] = None
                            ) -> Dict[str, np.ndarray]:
     """Write the input of `match_features` as a dataset directory and return
     {image: [features] id of the 3D point each feature observes, -1 for a
@@ -243,7 +382,10 @@ def write_matching_dataset(path: str, n_shots: int = 32,
     angle; uint8 descriptors), `exif/*.exif` with GPS, `camera_models.json`,
     `image_list.txt`, `config.yaml` and, with `words`, `*.words.npz`
     holding 20 words per feature, the first one shared by all observations
-    of a point (out of WORDS_VOCABULARY words)."""
+    of a point (out of WORDS_VOCABULARY words).  With `camera_types` (one
+    projection type per image) image i is seen through a camera of type
+    `camera_types[i]`, one camera per type (id `synthetic_<type>`,
+    parameters MODEL_PARAMS), and the draws are those of the default."""
     from opensfm_tpu_torch import geo
     from opensfm_tpu_torch.dataset import DataSet
     from opensfm_tpu_torch.features import FeaturesData
@@ -267,10 +409,20 @@ def write_matching_dataset(path: str, n_shots: int = 32,
     with open(os.path.join(path, "image_list.txt"), "w") as f:
         f.write("".join(f"images/{im}\n" for im in images))
     data = DataSet(path)
-    camera = cl.Camera.create_perspective(focal, k1, k2)
-    camera.id = "synthetic_camera"
-    camera.width = camera.height = 1000
-    data.save_camera_models({camera.id: camera})
+    if camera_types is None:
+        camera = cl.Camera.create_perspective(focal, k1, k2)
+        camera.id = "synthetic_camera"
+        image_cameras = [camera] * n_shots
+    else:
+        by_type = {}
+        for t in camera_types:
+            if t not in by_type:
+                by_type[t] = cl.Camera(t, MODEL_PARAMS[t])
+                by_type[t].id = f"synthetic_{t}"
+        image_cameras = [by_type[t] for t in camera_types]
+    for camera in image_cameras:
+        camera.width = camera.height = 1000
+    data.save_camera_models({c.id: c for c in image_cameras})
     ref = geo.TopocentricConverter(*GPS_ORIGIN)
 
     tracks = {}
@@ -278,7 +430,8 @@ def write_matching_dataset(path: str, n_shots: int = 32,
         pose = Pose(insts[i, :3], insts[i, 3:])
         seen = np.flatnonzero((near == i).any(axis=1))
         pc = points[seen] @ pose.get_rotation_matrix().T + pose.translation
-        uv = cl.project("perspective", pc, np.array([k1, k2, focal]), xp=np)
+        camera = image_cameras[i]
+        uv = cl.project(camera.projection_type, pc, camera.parameters, xp=np)
         uv = uv + rng.normal(0, NOISE, uv.shape)
         noise = rng.integers(-DESCRIPTOR_NOISE, DESCRIPTOR_NOISE + 1,
                              (len(seen), 128))
@@ -305,7 +458,8 @@ def write_matching_dataset(path: str, n_shots: int = 32,
         lat, lon, alt = ref.to_lla(*pose.get_origin())
         data.save_exif(image, {
             "camera": camera.id, "width": 1000, "height": 1000,
-            "projection_type": "perspective", "focal_ratio": focal,
+            "projection_type": camera.projection_type,
+            "focal_ratio": getattr(camera, "focal", 0.0),
             "orientation": 1, "capture_time": float(i),
             "gps": {"latitude": lat, "longitude": lon, "altitude": alt,
                     "dop": 5.0},

@@ -8,7 +8,10 @@ from a seed, and writes them as PNGs with an eXIf chunk (Make, Model,
 FocalLengthIn35mmFilm, a capture time and GPS with noise) by its own PNG
 and EXIF writers, so neither OpenCV nor PIL is needed.  It returns the true
 camera centres; `grade_reconstruction` holds a
-reconstruction's camera centres against them after a similarity fit.
+reconstruction's camera centres against them after a similarity fit.  Views
+may be rendered through any camera model (`cameras.bearing`) and as rig
+instances of several cameras, with the overrides that give each camera
+key its model.
 """
 
 from __future__ import annotations
@@ -55,6 +58,22 @@ def view_poses(n_views: int, step_deg: Optional[float] = None,
     return out
 
 
+# Camera models of the renders, normalized units (`cameras.PARAMS` order),
+# focal FOCAL_35MM / 36 as the EXIF says, every distortion term away from
+# zero.
+CAMERA_MODELS = {
+    "brown": ("brown", (-0.05, 0.01, 0.001, 0.001, -0.0005, FOCAL_35MM / 36.0,
+                        1.0, 0.005, -0.003)),
+    "fisheye_opencv": ("fisheye_opencv", (-0.02, 0.003, 0.0005, -0.0001,
+                                          FOCAL_35MM / 36.0, 1.0, -0.004,
+                                          0.002)),
+}
+# A stereo rig: a brown camera on the left and a fisheye_opencv camera on
+# the right, 0.4 m apart, both facing the view direction.
+RIG = [("left", CAMERA_MODELS["brown"], -0.2),
+       ("right", CAMERA_MODELS["fisheye_opencv"], 0.2)]
+
+
 def _noise_grids(seed: int, n_surfaces: int, device) -> torch.Tensor:
     rng = np.random.default_rng(seed)
     g = rng.uniform(-1.0, 1.0, (n_surfaces, len(TEXTURE_CYCLES),
@@ -98,10 +117,15 @@ def scene_boxes(walls: Optional[float] = None) -> np.ndarray:
 
 def render_view(R: np.ndarray, centre: np.ndarray, width: int, height: int,
                 seed: int = 0, device="cpu",
-                walls: Optional[float] = None) -> np.ndarray:
+                walls: Optional[float] = None,
+                camera: Optional[Tuple[str, Tuple[float, ...]]] = None
+                ) -> np.ndarray:
     """[height, width, 3] uint8 RGB of the scene (`scene_boxes(walls)`)
     from camera (R, centre), ray-cast on `device` with SUPERSAMPLE^2 rays
-    per pixel."""
+    per pixel: pinhole rays of focal FOCAL_35MM / 36, or with `camera`
+    (projection type, parameters in `cameras.PARAMS` order, normalized
+    units) each ray is that model's bearing of its normalized image
+    coordinates (`cameras.bearing(..., xp=torch)`)."""
     dev = torch.device(device)
     ss = SUPERSAMPLE
     size = max(width, height)
@@ -110,9 +134,17 @@ def render_view(R: np.ndarray, centre: np.ndarray, width: int, height: int,
         (torch.arange(height * ss, device=dev, dtype=torch.float64) + 0.5) / ss,
         (torch.arange(width * ss, device=dev, dtype=torch.float64) + 0.5) / ss,
         indexing="ij")
-    xn = (is_ - width / 2.0) / size / focal
-    yn = (js - height / 2.0) / size / focal
-    d_cam = torch.stack([xn, yn, torch.ones_like(xn)], dim=-1)
+    if camera is None:
+        xn = (is_ - width / 2.0) / size / focal
+        yn = (js - height / 2.0) / size / focal
+        d_cam = torch.stack([xn, yn, torch.ones_like(xn)], dim=-1)
+    else:
+        from opensfm_tpu_torch.geometry import cameras
+
+        uv = torch.stack([(is_ - width / 2.0) / size,
+                          (js - height / 2.0) / size], dim=-1)
+        params = torch.as_tensor(camera[1], dtype=torch.float64, device=dev)
+        d_cam = cameras.bearing(camera[0], uv, params, xp=torch)
     Rt = torch.as_tensor(R, dtype=torch.float64, device=dev)
     d = d_cam @ Rt  # world directions (R^T d_cam), not normalized
     c = torch.as_tensor(centre, dtype=torch.float64, device=dev)
@@ -197,7 +229,8 @@ def _dms(deg: float) -> List[float]:
     return [d, m, (deg - d - m / 60.0) * 3600.0]
 
 
-def exif_tiff(lat: float, lon: float, alt: float, capture: str) -> bytes:
+def exif_tiff(lat: float, lon: float, alt: float, capture: str,
+              model: str = MODEL) -> bytes:
     """A little-endian TIFF EXIF block: Make, Model, the Exif IFD
     (FocalLengthIn35mmFilm, DateTimeOriginal) and the GPS IFD."""
     exif_entries = [(0xA405, 3, 1, struct.pack("<H", FOCAL_35MM)),
@@ -209,7 +242,7 @@ def exif_tiff(lat: float, lon: float, alt: float, capture: str) -> bytes:
         (0x0005, 1, 1, b"\x00"), _rationals(0x0006, [max(alt, 0.0)], 1000),
         _rationals(0x000B, [5.0], 10),
     ]
-    ifd0 = [_ascii(0x010F, MAKE), _ascii(0x0110, MODEL),
+    ifd0 = [_ascii(0x010F, MAKE), _ascii(0x0110, model),
             (0x8769, 4, 1, b""), (0x8825, 4, 1, b"")]
     # Lay out: header, IFD0 (+ data), Exif IFD (+ data), GPS IFD (+ data).
     ifd0_len = 2 + 12 * len(ifd0) + 4
@@ -247,16 +280,41 @@ def write_png(path: str, rgb: np.ndarray, exif: Optional[bytes] = None) -> None:
         f.write(data)
 
 
+def camera_key(model: str, width: int, height: int) -> str:
+    """The camera id `extract_metadata` gives a render's EXIF (Make, Model,
+    size, perspective, FOCAL_35MM / 36): the key of its camera model
+    override."""
+    from opensfm_tpu_torch import exif
+
+    return exif.camera_id_(MAKE, model, width, height, "perspective",
+                           FOCAL_35MM / 36.0)
+
+
 def write_image_dataset(path: str, n_views: int = 16, width: int = 2048,
                         height: int = 1536, seed: int = 0, device="cpu",
                         step_deg: Optional[float] = None,
                         config: Optional[Dict[str, Any]] = None,
-                        walls: Optional[float] = None) -> Dict[str, Any]:
+                        walls: Optional[float] = None,
+                        camera: Optional[Tuple[str, Tuple[float, ...]]] = None,
+                        rig: Optional[List[Tuple[str, Tuple[str, Tuple[float, ...]],
+                                                 float]]] = None
+                        ) -> Dict[str, Any]:
     """Render `n_views` views (`view_poses`) of `scene_boxes(walls)` into
     `path`/images as PNGs with EXIF (GPS with GPS_NOISE metres of noise)
     and write `config.yaml` (`config` over the defaults).  Returns
-    {"centres": {image: true centre}}."""
-    from opensfm_tpu_torch import geo
+    {"centres": {image: true centre}}.
+
+    `camera` (projection type, parameters) renders through that model and
+    writes `camera_models_overrides.json`, which gives the EXIF's camera
+    its true model.  `rig` [(name, camera, offset in metres along the view's
+    x axis)] renders each view as a rig instance of one image per rig
+    camera, `view_<i>_<name>.png` with EXIF Model `<MODEL> <name>` (one
+    camera key per rig camera, each overridden with its model); the truth
+    then also holds {"rig_cameras": {name: (rotation, translation)}}, the
+    instance-to-camera poses of a frame at the view's pose, and
+    `rig_patterns` {name: regex} for `create_rig pattern`."""
+    from opensfm_tpu_torch import geo, io
+    from opensfm_tpu_torch.geometry.cameras import Camera
 
     os.makedirs(os.path.join(path, "images"), exist_ok=True)
     with open(os.path.join(path, "config.yaml"), "w") as f:
@@ -264,15 +322,39 @@ def write_image_dataset(path: str, n_views: int = 16, width: int = 2048,
     ref = geo.TopocentricConverter(*GPS_ORIGIN)
     rng = np.random.default_rng(seed + 1)
     truth: Dict[str, Any] = {"centres": {}}
+    members = ([(None, camera, 0.0)] if rig is None else rig)
+    overrides = {}
+    for name, model_cam, _ in members:
+        if model_cam is None:
+            continue
+        model = MODEL if name is None else f"{MODEL} {name}"
+        override = Camera(model_cam[0], model_cam[1])
+        override.id = camera_key(model, width, height)
+        override.width, override.height = width, height
+        overrides[override.id] = override
+    if rig is not None:
+        truth["rig_cameras"] = {name: (np.zeros(3), np.array([-off, 0.0, 0.0]))
+                                for name, _, off in rig}
+        truth["rig_patterns"] = {name: f"_{name}" for name, _, _ in rig}
     for i, (R, c) in enumerate(view_poses(n_views, step_deg)):
-        image = f"view_{i:03d}.png"
-        rgb = render_view(R, c, width, height, seed=seed, device=device,
-                          walls=walls)
-        lat, lon, alt = ref.to_lla(*(c + rng.normal(0, GPS_NOISE, 3)))
-        write_png(os.path.join(path, "images", image), rgb,
-                  exif_tiff(lat, lon, alt, f"2024:05:01 12:{i // 60:02d}:"
-                                           f"{i % 60:02d}"))
-        truth["centres"][image] = c
+        gps_c = c + rng.normal(0, GPS_NOISE, 3)
+        for name, model_cam, off in members:
+            image = (f"view_{i:03d}.png" if name is None
+                     else f"view_{i:03d}_{name}.png")
+            centre = c + off * R[0]
+            rgb = render_view(R, centre, width, height, seed=seed,
+                              device=device, walls=walls, camera=model_cam)
+            lat, lon, alt = ref.to_lla(*(gps_c + off * R[0]))
+            write_png(os.path.join(path, "images", image), rgb,
+                      exif_tiff(lat, lon, alt, f"2024:05:01 12:{i // 60:02d}:"
+                                               f"{i % 60:02d}",
+                                model=MODEL if name is None
+                                else f"{MODEL} {name}"))
+            truth["centres"][image] = centre
+    if overrides:
+        with open(os.path.join(path, "camera_models_overrides.json"),
+                  "w") as f:
+            io.json_dump(io.cameras_to_json(overrides), f)
     return truth
 
 
@@ -280,7 +362,8 @@ def grade_reconstruction(reconstructions, truth: Dict[str, Any],
                          tracks_manager=None) -> Dict[str, Any]:
     """The largest reconstruction's shots, the number of reconstructions,
     its camera-centre RMS after the similarity (Umeyama) that best maps
-    them onto the true centres (metres), and, with `tracks_manager`, its
+    them onto the true centres (metres), that similarity's scale, and, with
+    `tracks_manager`, its
     reprojection RMS in pixels of the larger image side over the track
     observations within 0.006 (normalized units, as
     `synthetic_bundle.grade_reconstruction`) of their projection."""
@@ -299,10 +382,20 @@ def grade_reconstruction(reconstructions, truth: Dict[str, Any],
     d = scale * e @ Rf.T - t
     out = {"shots": len(ids), "reconstructions": len(reconstructions),
            "points": len(rec.points),
-           "centre_rms": float(np.sqrt(np.mean(np.sum(d * d, axis=1))))}
+           "centre_rms": float(np.sqrt(np.mean(np.sum(d * d, axis=1)))),
+           "scale": float(scale)}
     if tracks_manager is not None:
         cam = next(iter(rec.cameras.values()))
         size = max(cam.width, cam.height)
         out["reprojection_rms_px"] = sb.reprojection_rms(
             rec, tracks_manager, max_error=0.006) * size
     return out
+
+
+def rig_reading(rig_cameras) -> Tuple[float, float]:
+    """(baseline m, relative rotation rad) between the rig cameras "left"
+    and "right" of RIG."""
+    a, b = (rig_cameras[n].pose for n in ("left", "right"))
+    rel = b.compose(a.inverse())
+    return (float(np.linalg.norm(rel.get_origin())),
+            float(np.linalg.norm(rel.rotation)))

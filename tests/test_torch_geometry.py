@@ -65,15 +65,19 @@ def test_linalg_matches_reference():
 
 
 def test_project_torch_matches_numpy_and_rejects_other_types():
+    """Perspective and fisheye (every type since the generic BA route;
+    tests/test_torch_cameras.py holds all ten) match the numpy form; a type
+    outside the ten is rejected."""
     rng = np.random.default_rng(2)
     X = rng.normal(size=(30, 3)) + np.array([0.0, 0.0, 6.0])
     params = np.array([-0.05, 0.002, 0.85])
-    np.testing.assert_allclose(
-        cameras.project_torch("perspective", T(X), T(params)).numpy(),
-        ref_cameras.project("perspective", X, params, xp=np),
-        rtol=1e-13, atol=0)
-    with pytest.raises(NotImplementedError):
-        cameras.project_torch("fisheye", T(X), T(params))
+    for ptype in ("perspective", "fisheye"):
+        np.testing.assert_allclose(
+            cameras.project_torch(ptype, T(X), T(params)).numpy(),
+            ref_cameras.project(ptype, X, params, xp=np),
+            rtol=1e-13, atol=0)
+    with pytest.raises(ValueError):
+        cameras.project_torch("orthographic", T(X), T(params))
 
 
 def test_triangulate_midpoint_matches_reference():
