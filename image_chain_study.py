@@ -5,12 +5,13 @@ Renders `--views` views (`synthetic_images`, seed 0) of the boxes scene,
 optionally ringed by walls (`--walls D`, inner faces D metres out), on an
 arc of `--step-deg` degrees between views (0: evenly around the circle),
 then runs `extract_metadata`, `detect_features`, `match_features`,
-`create_tracks` and `reconstruct` at the default config through one
-package: the port (`--package port`, on `--device`) or the JAX package on
+`create_tracks`, `reconstruct`, `mesh`, `undistort` and
+`compute_depthmaps` (the eight stages of `run_all`) at the default config
+through one package: the port (`--package port`, on `--device`) or the JAX package on
 the CPU (`--package jax`, for parity on a host that has it).  With
 `--features-from DIR` the features, EXIF and camera models are copied from
-an earlier run's dataset DIR and only the last three stages run, which
-separates detection from the rest.  `--camera TYPE` renders every view
+an earlier run's dataset DIR and detection does not run, which
+separates it from the rest; `--sparse` stops after `reconstruct`.  `--camera TYPE` renders every view
 through `synthetic_images.CAMERA_MODELS[TYPE]` (brown, fisheye_opencv),
 which the camera model overrides give the EXIF's camera; `--rig` renders
 each view as an instance of `synthetic_images.RIG` (a brown camera left
@@ -21,8 +22,26 @@ reconstructions, points, camera-centre RMS after a similarity fit,
 reprojection RMS in pixels) with the calibrated focal, k1 and k2, and with
 `--rig` the rig cameras' baseline (metres of the truth: times the
 similarity's scale) and relative rotation (rad) as `create_rig`
-calibrated them and as the reconstruction left them.  `--config JSON`
-writes those entries into the dataset's config.yaml over the defaults.
+calibrated them and as the reconstruction left them.  After the dense
+stages the line also holds the merged point cloud's grade
+(`synthetic_images.grade_point_cloud` through the same similarity: points,
+median and 90th-percentile distance to the scene's surfaces in metres) and
+the shots with depthmaps.  `--config JSON` writes those entries into the
+dataset's config.yaml over the defaults.
+
+`--diagnose` (the port, on the default pinhole render without a rig)
+adds `diagnosis`: where the sparse error comes from.  The saved
+reconstruction's observations, outliers removed as its last bundle left
+them, are triangulated with the true cameras and reprojected
+(`truth_residuals`: median and RMS within 4 px, the share beyond 4 px,
+and the radial term a of obs = (1 + a) proj, which a focal bias would
+show); then full bundles (`bundles`) from the result and from the truth
+mapped into its frame, with and without the GPS priors, and from the
+result without the observations beyond 4 px of the truth, each with its
+final cost, focal and centre RMS, and from the result after the AUTO
+outlier filter (`bundle_outlier_filtering_type`).  After the dense stages it adds the
+sparse points' grade beside the cloud's and the median height of each
+near the ground (metres; 0 on the truth).
 
     python3 image_chain_study.py --package port --device cpu \\
         --width 640 --height 480 --out build/study/boxes_port
@@ -40,7 +59,9 @@ import time
 import numpy as np
 
 STAGES = ("extract_metadata", "detect_features", "match_features",
-          "create_tracks", "reconstruct")
+          "create_tracks", "reconstruct", "mesh", "undistort",
+          "compute_depthmaps")
+SPARSE = STAGES[:5]
 
 
 def _jax_runner():
@@ -48,13 +69,15 @@ def _jax_runner():
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    from opensfm_tpu.actions import (create_rig, create_tracks,
-                                     detect_features, extract_metadata,
-                                     match_features, reconstruct)
+    from opensfm_tpu.actions import (compute_depthmaps, create_rig,
+                                     create_tracks, detect_features,
+                                     extract_metadata, match_features, mesh,
+                                     reconstruct, undistort)
     from opensfm_tpu.dataset import DataSet
 
     actions = dict(zip(STAGES, (extract_metadata, detect_features,
-                                match_features, create_tracks, reconstruct)))
+                                match_features, create_tracks, reconstruct,
+                                mesh, undistort, compute_depthmaps)))
 
     def run(stage, path, device, *args):
         if stage == "create_rig":
@@ -99,6 +122,9 @@ def main(argv=None) -> dict:
                    "whole circle")
     p.add_argument("--walls", type=float, default=None)
     p.add_argument("--features-from", default=None)
+    p.add_argument("--sparse", action="store_true",
+                   help="stop after reconstruct (no mesh, undistort or "
+                   "depthmaps)")
     p.add_argument("--camera", default=None,
                    choices=("brown", "fisheye_opencv"),
                    help="render through synthetic_images.CAMERA_MODELS[...]")
@@ -108,8 +134,12 @@ def main(argv=None) -> dict:
     p.add_argument("--config", default="{}",
                    help="JSON object of config.yaml entries over the "
                    "defaults, e.g. '{\"matching_gps_neighbors\": 8}'")
+    p.add_argument("--diagnose", action="store_true",
+                   help="add the sparse error's diagnosis (the port only)")
     p.add_argument("--out", required=True)
     args = p.parse_args(argv)
+    if args.diagnose and (args.package != "port" or args.camera or args.rig):
+        p.error("--diagnose runs the port on the pinhole render only")
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import synthetic_images as si
@@ -127,9 +157,9 @@ def main(argv=None) -> dict:
         camera=si.CAMERA_MODELS[args.camera] if args.camera else None,
         rig=si.RIG if args.rig else None)
     stages = {"render": time.perf_counter() - t0}
-    todo = STAGES
+    todo = SPARSE if args.sparse else STAGES
     if args.rig:
-        todo = STAGES[:2] + ("create_rig",) + STAGES[2:]
+        todo = todo[:2] + ("create_rig",) + todo[2:]
     if args.features_from:
         for name in ("features", "exif", "camera_models.json"):
             src = os.path.join(args.features_from, name)
@@ -157,6 +187,17 @@ def main(argv=None) -> dict:
                features_min=int(np.min(feats)),
                features_mean=float(np.mean(feats)), grade=grade,
                focal=cam.focal, k1=cam.k1, k2=cam.k2)
+    if "compute_depthmaps" in todo:
+        from opensfm_tpu_torch import io
+        from opensfm_tpu_torch.dataset import UndistortedDataSet
+
+        udata = UndistortedDataSet(data, os.path.join(args.out,
+                                                      "undistorted"))
+        with open(udata.point_cloud_file()) as f:
+            points = io.point_cloud_from_ply(f)[0]
+        out["point_cloud"] = si.grade_point_cloud(points, grade, args.walls)
+        out["depthmap_shots"] = sum(udata.pruned_depthmap_exists(s)
+                                    for s in data.images())
     if args.rig:
         # Baselines in the truth's metres: times the similarity's scale.
         for key, cams in (("rig_calibrated", data.load_rig_cameras()),
@@ -166,7 +207,136 @@ def main(argv=None) -> dict:
                             rotation_rad=angle)
         out["cameras"] = {k: [c.projection_type, list(c.parameters)]
                           for k, c in best.cameras.items()}
+    if args.diagnose:
+        out["diagnosis"] = diagnose(data, truth, grade, args.step_deg or None,
+                                    args.device)
+        if "compute_depthmaps" in todo:
+            sparse = np.array([p.coordinates for p in best.points.values()])
+            out["diagnosis"].update(
+                sparse_points=si.grade_point_cloud(sparse, grade),
+                ground_height=dict(cloud=_ground_height(points, grade),
+                                   sparse=_ground_height(sparse, grade)))
     print(json.dumps(out), flush=True)
+    return out
+
+
+def _to_truth(points, grade):
+    return (grade["scale"] * np.asarray(points) @ np.asarray(grade["rotation"]).T
+            + np.asarray(grade["translation"]))
+
+
+def _ground_height(points, grade) -> float:
+    """Median height (m) of the points mapped within 0.2 m of the ground."""
+    z = _to_truth(points, grade)[:, 2]
+    return float(np.median(z[np.abs(z) < 0.2]))
+
+
+def _truth_points(rec, truth, focal, poses):
+    """{point id: position} triangulated (midpoint) from the observations
+    with the true pinhole cameras, in the truth's frame."""
+    out = {}
+    for pid, point in rec.points.items():
+        A, b = np.zeros((3, 3)), np.zeros(3)
+        for sid in point.get_observations():
+            x, y = rec.shots[sid].get_observation(pid).point
+            R, c = poses[sid], truth["centres"][sid]
+            d = R.T @ np.array([x / focal, y / focal, 1.0])
+            P = np.eye(3) - np.outer(d, d) / (d @ d)
+            A, b = A + P, b + P @ c
+        out[pid] = np.linalg.solve(A, b)
+    return out
+
+
+def diagnose(data, truth, grade, step_deg, device) -> dict:
+    """The sparse error's diagnosis of `--diagnose` (see the docstring)."""
+    import copy
+
+    import synthetic_images as si
+    from opensfm_tpu_torch import reconstruction as recmod
+
+    tm = data.load_tracks_manager()
+    rec = max(data.load_reconstruction(), key=lambda r: len(r.shots))
+    rec.add_correspondences_from_tracks_manager(tm)
+    config = data.config
+    recmod.remove_outliers(rec, config)
+    focal = si.FOCAL_35MM / 36.0
+    poses = {f"view_{i:03d}.png": R
+             for i, (R, _) in enumerate(si.view_poses(len(truth["centres"]),
+                                                      step_deg))}
+    size = max(next(iter(rec.cameras.values())).width,
+               next(iter(rec.cameras.values())).height)
+    xt = _truth_points(rec, truth, focal, poses)
+    res, proj, far = [], [], []
+    for pid, X in xt.items():
+        for sid in rec.points[pid].get_observations():
+            q = poses[sid] @ (X - truth["centres"][sid])
+            uv = focal * q[:2] / q[2]
+            r = np.asarray(rec.shots[sid].get_observation(pid).point) - uv
+            res.append(r)
+            proj.append(uv)
+            if np.linalg.norm(r) * size > 4.0:
+                far.append((pid, sid))
+    res, proj = np.array(res) * size, np.array(proj)
+    norm = np.linalg.norm(res, axis=1)
+    near = norm <= 4.0
+    radial = np.sum(res * proj, axis=1) / np.linalg.norm(proj, axis=1)
+    rr = np.linalg.norm(proj, axis=1)[near] * size
+    out = {"truth_residuals": dict(
+        observations=len(res), median_px=float(np.median(norm)),
+        rms_within_4px=float(np.sqrt(np.mean(norm[near] ** 2))),
+        share_beyond_4px=float(1.0 - near.mean()),
+        radial_term=float(np.sum(radial[near] * rr) / np.sum(rr * rr)))}
+
+    camera_priors = data.load_camera_models()
+    rig_priors = data.load_rig_cameras()
+    Rf = np.asarray(grade["rotation"])
+    s, t = grade["scale"], np.asarray(grade["translation"])
+
+    def from_truth(r):
+        cam = next(iter(r.cameras.values()))
+        values = dict(zip(cam.get_parameters_types(),
+                          cam.get_parameters_values()))
+        values.update(focal=focal, k1=0.0, k2=0.0)
+        cam.set_parameters_values([values[k] for k in
+                                   cam.get_parameters_types()])
+        for sid, shot in r.shots.items():
+            shot.pose.set_rotation_matrix(poses[sid] @ Rf)
+            shot.pose.set_origin(Rf.T @ (truth["centres"][sid] - t) / s)
+        for pid, X in xt.items():
+            r.points[pid].coordinates = Rf.T @ (X - t) / s
+        return r
+
+    def without_far(r):
+        for pid, sid in far:
+            r.remove_observation(sid, pid)
+        for pid in [p for p, pt in r.points.items()
+                    if pt.number_of_observations() < 2]:
+            r.remove_point(pid)
+        return r
+
+    def auto_filter(r):
+        recmod.remove_outliers(
+            r, dict(config, bundle_outlier_filtering_type="AUTO"))
+        return r
+
+    bundles = {}
+    for name, start, gps in (("auto_outlier_filter", auto_filter, True),
+                             ("from_result", None, True),
+                             ("from_truth", from_truth, True),
+                             ("from_result_no_gps", None, False),
+                             ("from_truth_no_gps", from_truth, False),
+                             ("without_far_observations", without_far, True)):
+        r = copy.deepcopy(rec)
+        if start is not None:
+            start(r)
+        rep = recmod.bundle(r, camera_priors, rig_priors, None,
+                            dict(config, bundle_use_gps=gps), device=device)
+        cam = next(iter(r.cameras.values()))
+        bundles[name] = dict(
+            final_cost=rep["final_cost"], iterations=rep["iterations"],
+            focal=cam.focal, k1=cam.k1, k2=cam.k2,
+            centre_rms=si.grade_reconstruction([r], truth)["centre_rms"])
+    out["bundles"] = bundles
     return out
 
 

@@ -1,3 +1,3 @@
 """Library-level entry points, one per pipeline command (the reference's
-`opensfm/actions/`); the port has `match_features` and
-`bundle` so far."""
+`opensfm/actions/`): the eight stages of `run_all`, `bundle`,
+`reconstruct_from_prior`, `extend_reconstruction` and `create_rig`."""

@@ -27,6 +27,13 @@ from opensfm_tpu_torch.features import FeaturesData
 logger = logging.getLogger(__name__)
 
 
+def _grey_png(path: str) -> Optional[np.ndarray]:
+    """A mask or segmentation PNG's grey pixels, None where there is none."""
+    if os.path.isfile(path):
+        return io.imread(path, grayscale=True)
+    return None
+
+
 def _image_files(directory: str) -> Dict[str, str]:
     files = {}
     if os.path.isdir(directory):
@@ -88,10 +95,7 @@ class DataSet(DataSetBase):
 
     # -- masks / segmentation -------------------------------------------------
     def _grey_png(self, folder: str, image: str) -> Optional[np.ndarray]:
-        path = self._fp(folder, image + ".png")
-        if os.path.isfile(path):
-            return io.imread(path, grayscale=True)
-        return None
+        return _grey_png(self._fp(folder, image + ".png"))
 
     def load_mask(self, image: str) -> Optional[np.ndarray]:
         return self._grey_png("masks", image)
@@ -429,59 +433,37 @@ class UndistortedDataSet:
         return self._fp("images", image)
 
     def load_undistorted_image(self, image: str) -> np.ndarray:
-        import cv2
-
-        img = cv2.imread(self._undistorted_image_file(image))
-        if img is None:
-            raise IOError(f"Unable to load undistorted image {image}")
-        return img[:, :, ::-1]
+        return io.imread(self._undistorted_image_file(image))
 
     def save_undistorted_image(self, image: str, array: np.ndarray) -> None:
-        import cv2
-
         self._ensure_dir("images")
-        cv2.imwrite(self._undistorted_image_file(image), array[:, :, ::-1])
+        io.imwrite(self._undistorted_image_file(image), array)
 
     def undistorted_image_size(self, image: str) -> Tuple[int, int]:
-        from PIL import Image
+        return io.image_size(self._undistorted_image_file(image))
 
-        with Image.open(self._undistorted_image_file(image)) as img:
-            w, h = img.size
-        return h, w
+    def _grey_png(self, folder: str, image: str) -> Optional[np.ndarray]:
+        return _grey_png(self._fp(folder, image + ".png"))
 
     def load_undistorted_mask(self, image: str) -> Optional[np.ndarray]:
-        import cv2
-
-        path = self._fp("masks", image + ".png")
-        if os.path.isfile(path):
-            return cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-        return None
+        return self._grey_png("masks", image)
 
     def undistorted_mask_exists(self, image: str) -> bool:
         return os.path.isfile(self._fp("masks", image + ".png"))
 
     def save_undistorted_mask(self, image: str, array: np.ndarray) -> None:
-        import cv2
-
         self._ensure_dir("masks")
-        cv2.imwrite(self._fp("masks", image + ".png"), array)
+        io.imwrite(self._fp("masks", image + ".png"), array)
 
     def load_undistorted_segmentation(self, image: str) -> Optional[np.ndarray]:
-        import cv2
-
-        path = self._fp("segmentations", image + ".png")
-        if os.path.isfile(path):
-            return cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-        return None
+        return self._grey_png("segmentations", image)
 
     def undistorted_segmentation_exists(self, image: str) -> bool:
         return os.path.isfile(self._fp("segmentations", image + ".png"))
 
     def save_undistorted_segmentation(self, image: str, array: np.ndarray) -> None:
-        import cv2
-
         self._ensure_dir("segmentations")
-        cv2.imwrite(self._fp("segmentations", image + ".png"), array)
+        io.imwrite(self._fp("segmentations", image + ".png"), array)
 
     # -- depthmaps ------------------------------------------------------------
     def _depthmap_path(self, image: str, suffix: str) -> str:

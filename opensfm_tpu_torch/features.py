@@ -231,26 +231,14 @@ def resized_image(image: np.ndarray, max_size: int, device=None) -> np.ndarray:
     otherwise): separable coverage weights (`area_weights`), i.e. two
     matrix products, rounded to uint8; at integer ratios OpenCV's box sums
     (resizeAreaFast) bit for bit."""
+    from opensfm_tpu_torch.ops.image import resize_area
+
     h, w = image.shape[:2]
     size = max(w, h)
     if not 0 < max_size < size:
         return image
-    dw, dh = w * max_size // size, h * max_size // size
-    dev = resolve_device(device)
-    wy, wx = area_weights(h, dh), area_weights(w, dw)
-    fast = h % dh == 0 and w % dw == 0
-    if fast:  # weights 1, then an integer division with rounding
-        area = (h // dh) * (w // dw)
-        wy, wx = (wy > 0).astype(np.float64), (wx > 0).astype(np.float64)
-    wy = torch.as_tensor(wy, device=dev)
-    wx = torch.as_tensor(wx, device=dev)
-    x = torch.as_tensor(np.asarray(image), device=dev).to(torch.float64)
-    out = torch.einsum("yh,hw...,xw->yx...", wy, x, wx)
-    if fast and area == 4:  # the 2x2 vector path: (sum + 2) >> 2
-        out = torch.div(out + 2, 4, rounding_mode="floor")
-    elif fast:  # float(sum) * float(1 / area), rounded half to even
-        out = out.to(torch.float32) * np.float32(1.0 / area)
-    return torch.round(out).clamp(0, 255).to(torch.uint8).cpu().numpy()
+    return resize_area(image, w * max_size // size, h * max_size // size,
+                       device).cpu().numpy()
 
 
 def rgb_to_grey(image: np.ndarray) -> np.ndarray:

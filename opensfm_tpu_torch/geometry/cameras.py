@@ -457,6 +457,21 @@ def denormalized_image_coordinates(norm_coords, width: int, height: int, xp=np):
     return norm_coords * size + xp.asarray([cx, cy], dtype=norm_coords.dtype)
 
 
+def normalized_pixel_grid(width: int, height: int, device):
+    """Normalized image coordinates [height * width, 2] (f64, row-major)
+    of every pixel centre of a width x height image, as torch on
+    `device`."""
+    import torch
+
+    ys, xs = torch.meshgrid(
+        torch.arange(height, dtype=torch.float64, device=device),
+        torch.arange(width, dtype=torch.float64, device=device),
+        indexing="ij")
+    size = max(width, height)
+    return torch.stack([(xs.reshape(-1) - (width - 1.0) / 2.0) / size,
+                        (ys.reshape(-1) - (height - 1.0) / 2.0) / size], 1)
+
+
 # ---------------------------------------------------------------------------
 # Host-side Camera shell (mirrors pygeometry.Camera)
 # ---------------------------------------------------------------------------
@@ -595,6 +610,24 @@ class Camera:
 
     def bearings_many(self, points) -> np.ndarray:
         return self.bearing(points)
+
+    def project_many_torch(self, points):
+        """`project_many` on a torch tensor [..., 3], on its device and in
+        its dtype."""
+        import torch
+
+        params = torch.as_tensor(self._values, dtype=points.dtype,
+                                 device=points.device)
+        return project(self.projection_type, points, params, xp=torch)
+
+    def bearings_many_torch(self, points):
+        """`bearings_many` on a torch tensor [..., 2], on its device and in
+        its dtype."""
+        import torch
+
+        params = torch.as_tensor(self._values, dtype=points.dtype,
+                                 device=points.device)
+        return bearing(self.projection_type, points, params, xp=torch)
 
     # -- pixel <-> normalized -----------------------------------------------
     def pixel_to_normalized_coordinates(self, px_coord) -> np.ndarray:

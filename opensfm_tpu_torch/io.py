@@ -758,6 +758,64 @@ def decode_png(data: bytes) -> np.ndarray:
     return pix.reshape(h, w) if c == 1 else pix.reshape(h, w, c)
 
 
+def _png_chunk(kind: bytes, payload: bytes) -> bytes:
+    import zlib
+
+    return (len(payload).to_bytes(4, "big") + kind + payload
+            + (zlib.crc32(kind + payload) & 0xFFFFFFFF).to_bytes(4, "big"))
+
+
+def encode_png(image: np.ndarray, level: int = 1) -> bytes:
+    """An 8-bit PNG of `image`: [H, W] (or [H, W, 1]) grey, [H, W, 2] grey
+    and alpha, [H, W, 3] RGB or [H, W, 4] RGBA, channels in file order.
+    Every row is Sub-filtered and the stream deflated by stdlib `zlib` at
+    `level`; `decode_png` and `cv2.imread` read it back bit for bit."""
+    import zlib
+
+    pix = np.asarray(image)
+    if pix.dtype != np.uint8:
+        raise ValueError(f"encode_png takes uint8 pixels, not {pix.dtype}")
+    if pix.ndim == 3 and pix.shape[2] == 1:
+        pix = pix[..., 0]
+    c = 1 if pix.ndim == 2 else pix.shape[2]
+    ctype = {v: k for k, v in _PNG_CHANNELS.items()}.get(c)
+    if pix.ndim not in (2, 3) or ctype is None:
+        raise ValueError(f"encode_png takes 1 to 4 channels, not shape "
+                         f"{pix.shape}")
+    h, w = pix.shape[:2]
+    rows = np.ascontiguousarray(pix).reshape(h, w * c)
+    sub = rows.copy()
+    sub[:, c:] -= rows[:, :-c]  # uint8 wraps: the Sub filter
+    raw = np.concatenate([np.ones((h, 1), np.uint8), sub], axis=1)
+    ihdr = (w.to_bytes(4, "big") + h.to_bytes(4, "big")
+            + bytes([8, ctype, 0, 0, 0]))
+    return (PNG_SIGNATURE + _png_chunk(b"IHDR", ihdr)
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _png_chunk(b"IEND", b""))
+
+
+def imwrite(path: str, image: np.ndarray) -> None:
+    """Write uint8 pixels in RGB(A) order (as `imread` gives them): PNG
+    by `encode_png`, any other extension through cv2, which must then be
+    installed."""
+    if path.rsplit(".", 1)[-1].lower() == "png":
+        with open(path, "wb") as f:
+            f.write(encode_png(image))
+        return
+    try:
+        import cv2
+    except ImportError:
+        raise ImportError(
+            f"writing {path.rsplit('.', 1)[-1].upper()} images needs cv2 "
+            f"(opencv-python), which is not installed; the port writes PNG "
+            f"itself: {path}") from None
+    if image.ndim == 3 and image.shape[2] >= 3:
+        image = image.copy()
+        image[..., :3] = image[..., [2, 1, 0]]  # RGB -> BGR
+    if not cv2.imwrite(path, image):
+        raise IOError(f"Unable to write image {path}")
+
+
 def _pnm_header(data: bytes):
     """(magic, width, height, maxval, offset of the pixels) of a binary
     PGM/PPM."""
@@ -1031,12 +1089,7 @@ class IoFilesystemDefault(IoFilesystemBase):
                       anydepth=anydepth)
 
     def imwrite(self, path: str, image: np.ndarray) -> None:
-        import cv2
-        if image.ndim == 3 and image.shape[2] >= 3:
-            image = image.copy()
-            image[..., :3] = image[..., [2, 1, 0]]  # RGB -> BGR
-        if not cv2.imwrite(path, image):
-            raise IOError(f"Unable to write image {path}")
+        imwrite(path, image)
 
     def image_size(self, path: str) -> Tuple[int, int]:
         return image_size(path)

@@ -358,11 +358,64 @@ def write_image_dataset(path: str, n_views: int = 16, width: int = 2048,
     return truth
 
 
+def write_true_reconstruction(path: str, n_views: int, width: int,
+                              height: int, step_deg: Optional[float] = None,
+                              camera: Optional[Tuple[str, Tuple[float, ...]]]
+                              = None, n_points: int = 400, seed: int = 0
+                              ) -> None:
+    """Write `reconstruction.json` and `tracks.csv` for the views
+    `write_image_dataset(path, n_views, width, height, step_deg=step_deg,
+    camera=camera)` rendered: every view at its true pose with its true
+    camera (`camera`, or the pinhole of focal FOCAL_35MM / 36), and
+    `n_points` points on the ground and the boxes' tops, each observed
+    where it projects into a view (occlusion is not checked), so that no
+    matching needs to run."""
+    from opensfm_tpu_torch import pymap, types
+    from opensfm_tpu_torch.dataset import DataSet
+    from opensfm_tpu_torch.geometry.cameras import Camera
+    from opensfm_tpu_torch.geometry.pose import Pose
+
+    ptype, params = camera or ("perspective", (0.0, 0.0, FOCAL_35MM / 36.0))
+    cam = Camera(ptype, params)
+    cam.id = camera_key(MODEL, width, height)
+    cam.width, cam.height = width, height
+    rec = types.Reconstruction()
+    rec.add_camera(cam)
+    rng = np.random.default_rng(seed)
+    n_top = n_points // 4
+    pts = np.column_stack([rng.uniform(-3.0, 3.0, (n_points - n_top, 2)),
+                           np.zeros(n_points - n_top)])
+    top = BOXES[rng.integers(0, len(BOXES), n_top)]
+    pts = np.concatenate([pts, np.column_stack([
+        rng.uniform(top[:, 0], top[:, 1]), rng.uniform(top[:, 2], top[:, 3]),
+        top[:, 5]])])
+    tracks = pymap.TracksManager()
+    for i, (R, c) in enumerate(view_poses(n_views, step_deg)):
+        image = f"view_{i:03d}.png"
+        pose = Pose()
+        pose.set_rotation_matrix(R)
+        pose.set_origin(c)
+        shot = rec.create_shot(image, cam.id, pose)
+        uv = shot.project_many(pts)
+        in_front = (pts - c) @ R[2] > 0
+        half = np.array([width, height]) / 2.0 / max(width, height)
+        seen = in_front & np.all(np.abs(uv) < half, axis=1)
+        for j in np.flatnonzero(seen):
+            tracks.add_observation(image, str(j), pymap.Observation(
+                uv[j, 0], uv[j, 1], 0.004, 128, 128, 128, int(j)))
+    for j, p in enumerate(pts):
+        rec.create_point(str(j), p)
+    data = DataSet(path)
+    data.save_reconstruction([rec])
+    data.save_tracks_manager(tracks)
+
+
 def grade_reconstruction(reconstructions, truth: Dict[str, Any],
                          tracks_manager=None) -> Dict[str, Any]:
     """The largest reconstruction's shots, the number of reconstructions,
     its camera-centre RMS after the similarity (Umeyama) that best maps
-    them onto the true centres (metres), that similarity's scale, and, with
+    them onto the true centres (metres), that similarity (x_true = scale *
+    rotation @ x + translation), and, with
     `tracks_manager`, its
     reprojection RMS in pixels of the larger image side over the track
     observations within 0.006 (normalized units, as
@@ -383,13 +436,48 @@ def grade_reconstruction(reconstructions, truth: Dict[str, Any],
     out = {"shots": len(ids), "reconstructions": len(reconstructions),
            "points": len(rec.points),
            "centre_rms": float(np.sqrt(np.mean(np.sum(d * d, axis=1)))),
-           "scale": float(scale)}
+           "scale": float(scale), "rotation": Rf.tolist(),
+           "translation": (mt - scale * Rf @ me).tolist()}
     if tracks_manager is not None:
         cam = next(iter(rec.cameras.values()))
         size = max(cam.width, cam.height)
         out["reprojection_rms_px"] = sb.reprojection_rms(
             rec, tracks_manager, max_error=0.006) * size
     return out
+
+
+def scene_distance(points: np.ndarray,
+                   walls: Optional[float] = None) -> np.ndarray:
+    """Distance (m) of each of `points` [K, 3] to the nearest surface of
+    the rendered scene: the ground square [-GROUND_EXTENT, GROUND_EXTENT]^2
+    at z = 0 and the faces of `scene_boxes(walls)`, computed analytically
+    (a point inside a box is as far from it as from its nearest face)."""
+    p = np.asarray(points, dtype=np.float64).reshape(-1, 3)
+    out = np.sqrt(np.sum(np.maximum(np.abs(p[:, :2]) - GROUND_EXTENT, 0.0)
+                         ** 2, axis=1) + p[:, 2] ** 2)
+    for box in scene_boxes(walls):
+        lo, hi = box[0::2], box[1::2]
+        outside = np.linalg.norm(np.maximum(np.maximum(lo - p, p - hi), 0.0),
+                                 axis=1)
+        inside = np.min(np.minimum(p - lo, hi - p), axis=1)
+        out = np.minimum(out, np.where(inside > 0, inside, outside))
+    return out
+
+
+def grade_point_cloud(points: np.ndarray, grade: Dict[str, Any],
+                      walls: Optional[float] = None) -> Dict[str, Any]:
+    """A dense point cloud in the reconstruction's frame, mapped to the
+    truth's by `grade_reconstruction`'s similarity: its point count and
+    the median and 90th-percentile distance (m) to the nearest scene
+    surface (`scene_distance`)."""
+    p = np.asarray(points, dtype=np.float64).reshape(-1, 3)
+    if not len(p):
+        return {"points": 0, "median_m": None, "p90_m": None}
+    mapped = (grade["scale"] * p @ np.asarray(grade["rotation"]).T
+              + np.asarray(grade["translation"]))
+    d = scene_distance(mapped, walls)
+    return {"points": int(len(p)), "median_m": float(np.median(d)),
+            "p90_m": float(np.quantile(d, 0.9))}
 
 
 def rig_reading(rig_cameras) -> Tuple[float, float]:
