@@ -80,28 +80,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     sizes (their device launches must not grow), one growth step traced for
     the device's busy share, and `reconstruct` of an 8-image subset on the
     card against the CPU;
-15. the chain from images at the default config: IMAGE_VIEWS views of
-    2,048 x 1,536 rendered on the card (synthetic_images: two textured
-    boxes on a textured ground, views on a circle) and written as PNGs with
-    an eXIf chunk, then `run_all` through the command runner (its eight
-    stages: `extract_metadata`, `detect_features`, `match_features`,
-    `create_tracks`, `reconstruct`, `mesh`, `undistort`,
-    `compute_depthmaps`): every view has >= feature_min_frames features,
-    all views land in one reconstruction within the centre and
-    reprojection bounds below, each stage's wall time from run_all's
-    report, the detector's per-image wall time, device busy time and
-    kernels (one image traced), rows 1, 2 and 6's launches over the chain
-    (all must launch), one image's detection on the card against the CPU
-    at the CPU tests' tolerances; every shot's mesh has a face, 16
-    undistorted PNGs of 2,048 x 1,536 and the undistorted reconstruction,
-    raw, clean and pruned depthmaps of every shot with a neighbour,
-    `merged.ply` graded against the scene within the DENSE_ bounds below;
-    one shot's PatchMatch at 640 x 480 (wall, peak device memory < 8 GiB),
-    the same shot's at 160 wide on the card against the CPU with the same
-    draws of four seeds (their mean share held), all from the inputs that
-    `dense.compute_depthmap` builds, and one half-iteration traced at
-    widths 320, 640 and 1280 with the main path's chunks of neighbours
-    (its device launches may grow with the chunk count only; busy share);
+15. the chain from images: IMAGE_VIEWS views of 2,048 x 1,536 rendered on
+    the card (synthetic_images: two textured boxes on a textured ground,
+    views on a circle) and written as JPEGs by the port's codec at
+    cv2.imwrite's defaults with the EXIF in an APP1 segment, then `run_all`
+    through the command runner at IMAGE_CONFIG (the defaults with the AUTO
+    outlier filter; its eight stages: `extract_metadata`,
+    `detect_features`, `match_features`, `create_tracks`, `reconstruct`,
+    `mesh`, `undistort`, `compute_depthmaps`): every view has >=
+    feature_min_frames features, all views land in one reconstruction
+    within the centre and reprojection bounds below, each stage's wall time
+    from run_all's report, the detector's per-image wall time, device busy
+    time and kernels (one image traced), rows 1, 2 and 6's launches over
+    the chain (all must launch), one image's detection on the card against
+    the CPU at the CPU tests' tolerances; the codec's decode and encode ms
+    an image on the host, decoding's share of `detect_features`, and view
+    0 decoded against its render (PSNR >= JPEG_MIN_PSNR_DB); every shot's
+    mesh has a face, 16 undistorted JPEGs of 2,048 x 1,536 and the
+    undistorted reconstruction, raw, clean and pruned depthmaps of every
+    shot with a neighbour, `merged.ply` graded against the scene within the
+    DENSE_ bounds below; one shot's PatchMatch at 640 x 480 (wall, peak
+    device memory < 8 GiB), the same shot's at 160 wide on the card against
+    the CPU with the same draws of four seeds (their mean share held), all
+    from the inputs that `dense.compute_depthmap` builds, and one
+    half-iteration traced at widths 320, 640 and 1280 with the main path's
+    chunks of neighbours (its device launches may grow with the chunk count
+    only; busy share);
 16. phase 14's reconstruction split into a thin-bridge pair and reunited by
     the seeded merge on the card within the JAX test's bounds, then
     `reconstruct --algorithm triangulation` and `reconstruct_from_prior`
@@ -122,17 +126,25 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     `create_tracks` and `reconstruct`, graded within the MIXED_ bounds
     below, and an 8-image subset on the card against the CPU;
 18. a rig from images: 12 instances of a two-camera rig (a brown camera
-    left, a fisheye_opencv camera right, 0.4 m apart) at 2,048 x 1,536
-    rendered on the card through their models, pairs from each image's 8
+    left, a fisheye_opencv camera right, 0.4 m apart) at 1,024 x 768
+    rendered on the card through their models as PNGs, pairs from each image's 8
     nearest by GPS, then `extract_metadata`
     (the camera model overrides give each rig camera its model),
     `detect_features`, `create_rig pattern`, `match_features`,
     `create_tracks` and `reconstruct`: all 24 shots in one reconstruction,
     the centre RMS and the rig cameras' baseline and relative rotation
-    (as calibrated and as reconstructed) within the bounds below.
+    (as calibrated and as reconstructed) within the bounds below;
+19. AKAZE: 8 of phase 15's JPEG views through `extract_metadata`,
+    `detect_features` and `match_features` with `feature_type` AKAZE
+    (M-SURF), and 2 of them with M-LDB: features an image, inliers a pair
+    and pairs within the bounds below, row 6 launched on float and on wide
+    uint8 descriptors (its FP32 route), M-LDB saved as 486 uint8 bits, one
+    image's AKAZE traced at two feature budgets (kernels, busy share; its
+    launches must not grow with the keypoints), and one view at 512 x 384
+    on the card against the CPU for both descriptors.
 Then the {"reconstruct": {...}}, {"image_chain": {...}},
-{"merge_and_algorithms": {...}}, {"models": {...}} and {"rig_chain":
-{...}} JSON lines, the card's name and power limit,
+{"merge_and_algorithms": {...}}, {"models": {...}}, {"rig_chain": {...}}
+and {"akaze_chain": {...}} JSON lines, the card's name and power limit,
 one {"kernels": [...]} JSON line, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -598,6 +610,9 @@ def _wrappers():
 def reset_launches():
     for fn in _wrappers().values():
         fn.launches = 0
+    by_input = _wrappers()["top2_sqdist"].launches_by_input
+    for key in by_input:
+        by_input[key] = 0
 
 
 def launches():
@@ -1649,6 +1664,12 @@ def run_reconstruct(match_path, feature_points, dev="cuda"):
 
 IMAGE_VIEWS, IMAGE_W, IMAGE_H = 16, 2048, 1536  # feature_process_size 2048
 IMAGE_STEP_DEG = 10.0  # degrees between neighbouring views on the circle
+# Phase 15's configuration over the defaults: the JAX package's own AUTO
+# outlier filter.  The default FIXED threshold (0.006 of the image size) is
+# 12.3 px at 2,048 x 1,536, where it keeps the ~1.5 % of observations that
+# pull the bundle's optimum, and which of them survive moves with the hash
+# seed (PERF.md §6); AUTO drops them.
+IMAGE_CONFIG = {"bundle_outlier_filtering_type": "AUTO"}
 # Bounds on phase 15's reconstruction against the render's truth
 # (synthetic_images.grade_reconstruction), set from CPU runs of smaller
 # renders of the same 16 views through both packages
@@ -1669,21 +1690,32 @@ IMAGE_MAX_REPROJ_PX = 1.0  # px of the larger side, observations within 0.006
 # package's CPU run there standing in for the CPU here.
 DETECT_POS_TOL, DETECT_POS_REL_TOL = 1e-3, 1e-3  # px (99 %), of the size
 DETECT_ANGLE_TOL, DETECT_UNMATCHED = 2.5, 0.005
+# View 0 decoded by the port's JPEG codec against its render: this bound was
+# set before the first card run from a CPU reading of the same view at
+# 2,048 x 1,536 (image_chain_study.py --codec-only: 47.268 dB, 371,060
+# bytes at cv2.imwrite's defaults), 1 dB below it; the card's render
+# rounds a little otherwise, its codec is the same host code.
+JPEG_MIN_PSNR_DB = 46.27
 
 
 # Phase 15's dense stages (run_all's mesh, undistort, compute_depthmaps).
 # Bounds on merged.ply against the render's scene
 # (synthetic_images.grade_point_cloud through grade_reconstruction's
-# similarity), set before the first card run from CPU runs of the same 16
-# views at 640 x 480 through both packages (image_chain_study.py,
-# PYTHONHASHSEED=1; the depthmaps are 640 wide there as here, so the
-# readings carry over): 3.5 times the larger distance reading, half the
-# smaller point count.  The port read 461,549 points, median 7.44e-3 m,
-# 90th percentile 2.380e-2 m; the JAX package 462,340, 7.69e-3 m and
-# 2.396e-2 m (all 16 shots with depthmaps in both).
-DENSE_MAX_MEDIAN_M = 0.0269  # m, median distance to the nearest surface
-DENSE_MAX_P90_M = 0.0838  # m, 90th percentile
-DENSE_MIN_POINTS = 230774
+# similarity), re-derived for this configuration (JPEG views, IMAGE_CONFIG's
+# AUTO outlier filter) before its first card run, by the rule that set the
+# PNG / FIXED ones: CPU runs of the same 16 views at 640 x 480 through both
+# packages (image_chain_study.py --jpeg --config
+# '{"bundle_outlier_filtering_type": "AUTO"}', PYTHONHASHSEED=1; the
+# depthmaps are 640 wide there as here, so the readings carry over), 3.5
+# times the larger distance reading, half the smaller point count.  The
+# port read 442,523 points, median 1.0558e-2 m, 90th percentile 2.996e-2
+# m; the JAX package (cv2 reading the same JPEGs) 442,449, 7.958e-3 m and
+# 2.609e-2 m (all 16 shots with depthmaps in both; centre RMS 5.68e-3 and
+# 4.47e-3 m, reprojection 0.224 and 0.221 px, under the sparse bounds
+# above, which keep their 1,024 x 768 derivation).
+DENSE_MAX_MEDIAN_M = 0.0370  # m, median distance to the nearest surface
+DENSE_MAX_P90_M = 0.1049  # m, 90th percentile
+DENSE_MIN_POINTS = 221224
 DENSE_MAX_PEAK_BYTES = 8 << 30  # one shot's PatchMatch on the card
 DENSE_PM_WIDTH = 160  # the card-vs-CPU PatchMatch (the CPU's time)
 DENSE_TRACE_WIDTHS = (320, 640, 1280)  # one half-iteration traced at each
@@ -1895,15 +1927,53 @@ def dense_figures(udata, rec, neighbours, dev="cuda"):
     return out
 
 
+def jpeg_figures(path, truth_rgb, detect_s):
+    """The port's JPEG codec on the card's host: every view decoded and
+    encoded again (ms an image), the share of `detect_features` decoding
+    took, and view 0 decoded against its render (PSNR, held to
+    JPEG_MIN_PSNR_DB)."""
+    from opensfm_tpu_torch import io
+
+    images = sorted(os.listdir(os.path.join(path, "images")))
+    decode_ms, encode_ms = [], []
+    for name in images:
+        t0 = time.perf_counter()
+        rgb = io.imread(os.path.join(path, "images", name))
+        decode_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        io.encode_jpeg(rgb)
+        encode_ms.append(1e3 * (time.perf_counter() - t0))
+    view0 = io.imread(os.path.join(path, "images", images[0]))
+    err = view0.astype(np.float64) - truth_rgb
+    psnr = float(10 * np.log10(255.0**2 / np.mean(err**2)))
+    out = dict(decode_ms_mean=float(np.mean(decode_ms)),
+               decode_ms_max=float(np.max(decode_ms)),
+               encode_ms_mean=float(np.mean(encode_ms)),
+               encode_ms_max=float(np.max(encode_ms)),
+               decode_share_of_detect_features=float(
+                   sum(decode_ms) / 1e3 / detect_s),
+               view0_psnr_db=psnr, bytes_mean=float(np.mean([
+                   os.path.getsize(os.path.join(path, "images", n))
+                   for n in images])),
+               decode_ms=decode_ms, encode_ms=encode_ms)
+    log(f"  JPEG codec on the host, {len(images)} views of {IMAGE_W} x "
+        f"{IMAGE_H}: {json.dumps(out)}")
+    check(psnr >= JPEG_MIN_PSNR_DB,
+          f"view 0 decoded by the port at {psnr:.2f} dB PSNR against its "
+          f"render (>= {JPEG_MIN_PSNR_DB})")
+    return out
+
+
 def run_image_chain(dev="cuda"):
-    """Phase 15: IMAGE_VIEWS views rendered on the card and written as PNGs
-    with EXIF, then `run_all` through the command runner at the default
-    config (its eight stages); the sparse result graded against the
-    render's truth, each stage's wall time, the detector's per-image
-    figures (one image traced), the kernels' launches over the chain, one
-    image's detection on the card against the CPU; then the dense outputs:
-    every shot's mesh, the undistorted images and reconstruction, every
-    shot's depthmaps, `merged.ply` graded against the scene, and
+    """Phase 15: IMAGE_VIEWS views rendered on the card and written as
+    JPEGs (the port's codec) with EXIF in APP1, then `run_all` through the
+    command runner at IMAGE_CONFIG (its eight stages); the sparse result
+    graded against the render's truth, each stage's wall time, the
+    detector's per-image figures (one image traced), the kernels' launches
+    over the chain, one image's detection on the card against the CPU, the
+    codec's figures (`jpeg_figures`); then the dense outputs: every shot's
+    mesh, the undistorted JPEGs and reconstruction, every shot's
+    depthmaps, `merged.ply` graded against the scene, and
     `dense_figures`."""
     import synthetic_images as si
     from opensfm_tpu_torch import features, io
@@ -1915,9 +1985,10 @@ def run_image_chain(dev="cuda"):
     t0 = time.perf_counter()
     truth = si.write_image_dataset(path, IMAGE_VIEWS, IMAGE_W, IMAGE_H,
                                    seed=0, device=dev,
-                                   step_deg=IMAGE_STEP_DEG)
+                                   step_deg=IMAGE_STEP_DEG,
+                                   config=IMAGE_CONFIG, image_format="jpg")
     render_s = time.perf_counter() - t0
-    log(f"  rendered and wrote {IMAGE_VIEWS} PNGs of {IMAGE_W} x {IMAGE_H} "
+    log(f"  rendered and wrote {IMAGE_VIEWS} JPEGs of {IMAGE_W} x {IMAGE_H} "
         f"in {render_s:.1f} s")
 
     reset_launches()
@@ -1977,6 +2048,10 @@ def run_image_chain(dev="cuda"):
           f"reprojection RMS {grade['reprojection_rms_px']:.3f} px")
 
     vs_cpu = detect_card_vs_cpu(features.rgb_to_grey(image), config, dev)
+    R0, c0 = si.view_poses(IMAGE_VIEWS, IMAGE_STEP_DEG)[0]
+    codec = jpeg_figures(path, si.render_view(R0, c0, IMAGE_W, IMAGE_H,
+                                              seed=0, device=dev),
+                         stages["detect_features"])
 
     # The dense stages' outputs.
     meshed = data.load_reconstruction("reconstruction.meshed.json")[0]
@@ -1988,11 +2063,11 @@ def run_image_chain(dev="cuda"):
     und = sorted(os.listdir(os.path.join(path, "undistorted", "images")))
     sizes = {io.image_size(os.path.join(path, "undistorted", "images", f))
              for f in und}
-    check(len(und) == IMAGE_VIEWS and all(f.endswith(".png") for f in und)
+    check(len(und) == IMAGE_VIEWS and all(f.endswith(".jpg") for f in und)
           and sizes == {(IMAGE_H, IMAGE_W)}
           and os.path.isfile(os.path.join(path, "undistorted",
                                           "reconstruction.json")),
-          f"{IMAGE_VIEWS} undistorted {IMAGE_W} x {IMAGE_H} PNGs and the "
+          f"{IMAGE_VIEWS} undistorted {IMAGE_W} x {IMAGE_H} JPEGs and the "
           "undistorted reconstruction")
     dense_report = reports["compute_depthmaps"]
     neighbours = dense_report["neighbors"]
@@ -2030,7 +2105,8 @@ def run_image_chain(dev="cuda"):
     return dict(render_s=render_s, run_all_s=run_all_s, stage_s=stages,
                 launches=counts, features=n_feat, detect=detect,
                 grade={k: v for k, v in grade.items() if k != "rotation"},
-                detect_vs_cpu=vs_cpu, mesh_faces_min=min(faces.values()),
+                detect_vs_cpu=vs_cpu, jpeg=codec,
+                mesh_faces_min=min(faces.values()),
                 undistort=reports["undistort"], point_cloud=cloud_grade,
                 dense=dense)
 
@@ -2418,21 +2494,28 @@ def run_models(dev="cuda"):
 
 
 RIG_VIEWS = 12  # instances of synthetic_images.RIG on phase 15's arc
+RIG_W, RIG_H = 1024, 768  # a cut of depth: phase 15 keeps 2,048 x 1,536
 # Pairs from each image's 8 nearest by GPS (itself included), as survey
 # rig datasets select them: 107 of the 276 pairs, instances up to 4 apart,
 # in the main dataset and in create_rig's calibration subset alike.
 RIG_CONFIG = {"matching_gps_neighbors": 8}
-# Bounds on phase 18's reconstruction against the render's truth, set
-# before its first card run on RIG_CONFIG's pairs from CPU runs of the same
-# 12 instances at 640 x 480 (image_chain_study.py --rig --config
-# '{"matching_gps_neighbors": 8}', PYTHONHASHSEED=1): 3.5 times the larger
-# of the two packages' readings.  The port read centre RMS 4.75e-3 m, the
-# rig cameras' baseline 0.39988 m (0.40126 m as `create_rig` calibrated
-# it) and their relative rotation 2.78e-3 rad (2.41e-3); the JAX package
-# read 4.33e-3 m, 0.39992 m (0.40132 m) and 2.63e-3 rad (2.16e-3).
-RIG_MAX_CENTRE_RMS = 0.0166  # m, after a similarity fit to the true centres
-RIG_MAX_BASELINE_ERR = 0.0046  # m, |baseline x the fit's scale - 0.4|
-RIG_MAX_ROTATION = 0.0097  # rad, the rig cameras' relative rotation
+# Bounds on phase 18's reconstruction against the render's truth,
+# re-derived for RIG_W x RIG_H before its first card run at that size by
+# the rule that set them at 2,048 x 1,536 (then from 640 x 480 readings):
+# 3.5 times the larger of the two packages' readings on CPU runs of the
+# same 12 instances at 1,024 x 768 (image_chain_study.py --rig --width
+# 1024 --height 768 --until reconstruct --config '{"matching_gps_neighbors": 8}',
+# PYTHONHASHSEED=1).  The port read centre RMS 2.99e-3 m, the rig cameras'
+# baseline 0.39989 m (0.39686 m as `create_rig` calibrated it) and their
+# relative rotation 1.54e-3 rad (1.28e-3); the JAX package read 2.64e-3 m,
+# 0.39986 m (0.39695 m) and 1.50e-3 rad (1.21e-3).  The 640 x 480 readings
+# (4.75e-3 / 4.33e-3 m, calibrated baselines 0.40126 / 0.40132 m,
+# 2.78e-3 / 2.63e-3 rad) gave 0.0166 m, 0.0046 m and 0.0097 rad; at
+# 1,024 x 768 the calibration subset's baseline is 3.1e-3 m short in both
+# packages, so the baseline bound widens and the other two tighten.
+RIG_MAX_CENTRE_RMS = 0.0105  # m, after a similarity fit to the true centres
+RIG_MAX_BASELINE_ERR = 0.0110  # m, |baseline x the fit's scale - 0.4|
+RIG_MAX_ROTATION = 0.0054  # rad, the rig cameras' relative rotation
 
 
 def run_rig_chain(dev="cuda"):
@@ -2449,7 +2532,7 @@ def run_rig_chain(dev="cuda"):
     path = os.path.join(WORK, "rig_chain")
     shutil.rmtree(path, ignore_errors=True)
     t0 = time.perf_counter()
-    truth = si.write_image_dataset(path, RIG_VIEWS, IMAGE_W, IMAGE_H,
+    truth = si.write_image_dataset(path, RIG_VIEWS, RIG_W, RIG_H,
                                    seed=0, device=dev,
                                    step_deg=IMAGE_STEP_DEG, rig=si.RIG,
                                    config=RIG_CONFIG)
@@ -2498,6 +2581,183 @@ def run_rig_chain(dev="cuda"):
         check(r["rotation_rad"] < RIG_MAX_ROTATION,
               f"{key} relative rotation {r['rotation_rad']:.3e} rad")
     return dict(stage_s=stages, launches=counts, grade=grade, rig=rig_out)
+
+
+# --------------------------------------------------------------------------
+# AKAZE on the card (phase 19)
+# --------------------------------------------------------------------------
+
+AKAZE_VIEWS = 8  # phase 15's first 8 JPEG views; all 28 pairs, as there
+AKAZE_CONFIG = {"feature_type": "AKAZE"}  # akaze_descriptor MSURF
+MLDB_CONFIG = {"feature_type": "AKAZE", "akaze_descriptor": "MLDB"}
+AKAZE_SMALL_W = 512  # the card-vs-CPU view (512 x 384, for the CPU's time)
+# Bounds on phase 19, set before its first card run from CPU runs of the
+# same views through both packages at 640 x 480 (image_chain_study.py
+# --jpeg --views 8 (2 for M-LDB) --until match_features --config
+# '{"feature_type": "AKAZE"}', PYTHONHASHSEED=1): half the smaller of the
+# two packages' readings.  M-SURF, both packages alike: 2,043 features in
+# the poorest view, 11 of the 28 pairs matched (the far ones fail at that
+# size), 80.8 inliers a pair on average over all 28.  M-LDB: 2,043
+# features in the poorer view; the pair's inliers 120 (the port), 119 (the
+# JAX package).
+AKAZE_MIN_FEATURES = 1021  # features of the poorest view
+AKAZE_MIN_PAIRS = 5  # pairs with matches
+AKAZE_MIN_MEAN_INLIERS = 40  # inliers a pair, mean over all the pairs
+MLDB_MIN_FEATURES = 1021
+MLDB_MIN_INLIERS = 59  # the one pair's
+# Card vs CPU at AKAZE_SMALL_W: tests/test_torch_akaze.py's tolerances.
+AKAZE_MATCHED_SHARE, AKAZE_POS_TOL, AKAZE_ANGLE_TOL = 0.99, 1e-3, 0.01
+AKAZE_MSURF_TOL, AKAZE_MLDB_EQUAL_SHARE = 1e-4, 0.995
+
+
+def _akaze_dataset(path, images, sources, config):
+    """A dataset at `path` of the JPEG files `images` copied from
+    `sources`, with `config` over the defaults."""
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(os.path.join(path, "images"))
+    for name in images:
+        shutil.copy(os.path.join(sources, name),
+                    os.path.join(path, "images", name))
+    with open(os.path.join(path, "config.yaml"), "w") as f:
+        json.dump(config, f)
+
+
+def _match_readings(data):
+    inliers = [len(m) for im in data.images() if data.matches_exists(im)
+               for m in data.load_matches(im).values()]
+    feats = {im: len(data.load_features(im).points) for im in data.images()}
+    return feats, inliers
+
+
+def akaze_card_vs_cpu(image_gray, descriptor, dev="cuda"):
+    """One image's AKAZE (`extract_akaze_features`) on the card and on the
+    CPU, held to tests/test_torch_akaze.py's tolerances."""
+    from opensfm_tpu_torch.ops import akaze
+
+    config = {"akaze_descriptor": descriptor}
+    t0 = time.perf_counter()
+    pc, dc = akaze.extract_akaze_features(image_gray, config, 4000, dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pp, dp = akaze.extract_akaze_features(image_gray, config, 4000, "cpu")
+    cpu_s = time.perf_counter() - t0
+    dist = np.linalg.norm(pp[:, None, :2] - pc[None, :, :2], axis=2)
+    dist[np.abs(pp[:, None, 2] - pc[None, :, 2]) > 1e-6] = np.inf
+    nn = dist.argmin(1)
+    near = dist[np.arange(len(pp)), nn] <= AKAZE_POS_TOL
+    angle = np.abs(pp[near, 3] - pc[nn[near], 3])
+    out = dict(card_keypoints=len(pc), cpu_keypoints=len(pp),
+               matched_share=float(near.mean()),
+               angle_max_deg=float(np.minimum(angle, 360 - angle).max()),
+               card_s=card_s, cpu_s=cpu_s)
+    if descriptor == "MLDB":
+        out["bits_equal"] = float((dp[near] == dc[nn[near]]).mean())
+        desc_ok = out["bits_equal"] >= AKAZE_MLDB_EQUAL_SHARE
+    else:
+        out["desc_max_abs"] = float(np.abs(dp[near] - dc[nn[near]]).max())
+        desc_ok = out["desc_max_abs"] <= AKAZE_MSURF_TOL
+    log(f"  AKAZE {descriptor} card vs CPU, one {image_gray.shape[1]} x "
+        f"{image_gray.shape[0]} image: {json.dumps(out)}")
+    check(abs(len(pc) - len(pp)) <= 0.01 * len(pp)
+          and out["matched_share"] >= AKAZE_MATCHED_SHARE
+          and out["angle_max_deg"] <= AKAZE_ANGLE_TOL and desc_ok,
+          f"AKAZE {descriptor}: card and CPU agree")
+    return out
+
+
+def run_akaze_chain(sources, dev="cuda"):
+    """Phase 19: AKAZE through `extract_metadata`, `detect_features` and
+    `match_features` (the command runner) on AKAZE_VIEWS of phase 15's JPEG
+    views with M-SURF, and on two of them with M-LDB; features an image,
+    inliers a pair, row 6's launches by descriptor type (the FP32 route on
+    float and on wide uint8 descriptors must launch), one image's AKAZE
+    traced at two feature budgets (its launches must not grow with the
+    keypoints), and one view at AKAZE_SMALL_W on the card against the
+    CPU."""
+    from opensfm_tpu_torch import features
+    from opensfm_tpu_torch.commands import command_runner, opensfm_commands
+    from opensfm_tpu_torch.dataset import DataSet
+
+    top2 = _wrappers()["top2_sqdist"]
+    images = sorted(os.listdir(sources))[:AKAZE_VIEWS]
+    out = {}
+    reset_launches()
+    for key, config, names in (("msurf", AKAZE_CONFIG, images),
+                               ("mldb", MLDB_CONFIG, images[:2])):
+        path = os.path.join(WORK, f"akaze_{key}")
+        _akaze_dataset(path, names, sources, config)
+        stages = {}
+        for cmd in ("extract_metadata", "detect_features", "match_features"):
+            t0 = time.perf_counter()
+            report = command_runner(opensfm_commands,
+                                    argv=[cmd, path, "--device", dev])
+            torch.cuda.synchronize()
+            stages[cmd] = time.perf_counter() - t0
+            if cmd == "detect_features":
+                per_image = report["images"]
+        feats, inliers = _match_readings(DataSet(path))
+        out[key] = dict(
+            stage_s=stages, features=feats, pairs=len(inliers),
+            pairs_matched=int(np.count_nonzero(inliers)),
+            inliers_min=int(min(inliers, default=0)),
+            inliers_mean=float(np.mean(inliers)) if inliers else 0.0,
+            detect_ms_mean=float(np.mean([1e3 * r["detect_s"]
+                                          for r in per_image.values()])),
+            wait_ms_mean=float(np.mean([1e3 * r["wait_s"]
+                                        for r in per_image.values()])))
+        log(f"  {key}: {json.dumps(out[key])}")
+    out["launches"] = launches()
+    out["top2_by_input"] = dict(top2.launches_by_input)
+    log(f"  launches {out['launches']}; top2_sqdist by descriptors "
+        f"{out['top2_by_input']}")
+    check(all(out["launches"][k] == 0 for k in BA_KERNELS),
+          "no BA kernel launched by detect_features and match_features")
+    check(out["top2_by_input"]["float"] > 0,
+          "top2_sqdist launched on float (M-SURF) descriptors")
+    check(out["top2_by_input"]["uint8_wide"] > 0,
+          "top2_sqdist launched on wide uint8 (M-LDB) descriptors")
+    ms, ml = out["msurf"], out["mldb"]
+    check(min(ms["features"].values()) >= AKAZE_MIN_FEATURES,
+          f"M-SURF: every view has >= {AKAZE_MIN_FEATURES} features")
+    check(ms["pairs_matched"] >= AKAZE_MIN_PAIRS
+          and ms["inliers_mean"] >= AKAZE_MIN_MEAN_INLIERS,
+          f"M-SURF: >= {AKAZE_MIN_PAIRS} pairs matched, >= "
+          f"{AKAZE_MIN_MEAN_INLIERS} inliers a pair on average")
+    check(min(ml["features"].values()) >= MLDB_MIN_FEATURES
+          and ml["pairs_matched"] == 1
+          and ml["inliers_min"] >= MLDB_MIN_INLIERS,
+          f"M-LDB: >= {MLDB_MIN_FEATURES} features a view, the pair's "
+          f">= {MLDB_MIN_INLIERS} inliers")
+    mldb = DataSet(os.path.join(WORK, "akaze_mldb"))
+    saved = mldb.load_features(mldb.images()[0]).descriptors
+    check(saved.dtype == np.uint8 and saved.shape[1] == 486,
+          "M-LDB descriptors saved as 486 uint8 bits")
+
+    # One image's AKAZE traced at two feature budgets.
+    data = DataSet(os.path.join(WORK, "akaze_msurf"))
+    image = data.load_image(data.images()[0])
+    trace = {}
+    for budget in (data.config["feature_min_frames"], 1000):
+        config = dict(data.config, feature_min_frames=budget)
+        feats_out, k, c, busy, ms = _trace(lambda: features.extract_features(
+            image, config, False, device=dev))
+        trace[budget] = dict(keypoints=len(feats_out.points), kernels=k,
+                             copies=c, busy_ms=busy, wall_ms=ms,
+                             busy_share=busy / ms)
+    out["trace"] = trace
+    log(f"  one image's AKAZE ({IMAGE_W} x {IMAGE_H}) traced at two "
+        f"budgets: {json.dumps(trace)}")
+    lo, hi = sorted(trace)
+    check(trace[hi]["kernels"] <= 1.05 * trace[lo]["kernels"],
+          f"AKAZE's launches do not grow with the keypoints "
+          f"({trace[lo]['kernels']} at {lo} features, "
+          f"{trace[hi]['kernels']} at {hi})")
+
+    small = features.rgb_to_grey(features.resized_image(
+        image, AKAZE_SMALL_W, device="cpu"))
+    out["vs_cpu"] = {d: akaze_card_vs_cpu(small, d, dev)
+                     for d in ("MSURF", "MLDB")}
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2879,7 +3139,7 @@ def main() -> int:
     log(f"  done in {time.perf_counter() - t0:.1f} s")
 
     log(f"phase 15: from images, {IMAGE_VIEWS} views of {IMAGE_W} x "
-        f"{IMAGE_H} at the default config ({card})")
+        f"{IMAGE_H} as JPEGs, the AUTO outlier filter ({card})")
     t0 = time.perf_counter()
     chain = run_image_chain()
     log(f"  done in {time.perf_counter() - t0:.1f} s")
@@ -2899,9 +3159,15 @@ def main() -> int:
     log(f"  done in {time.perf_counter() - t0:.1f} s")
 
     log(f"phase 18: a rig from images, {RIG_VIEWS} instances of 2 cameras "
-        f"(brown, fisheye_opencv) at {IMAGE_W} x {IMAGE_H} ({card})")
+        f"(brown, fisheye_opencv) at {RIG_W} x {RIG_H} ({card})")
     t0 = time.perf_counter()
     rig_chain = run_rig_chain()
+    log(f"  done in {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 19: AKAZE, {AKAZE_VIEWS} of phase 15's JPEG views of "
+        f"{IMAGE_W} x {IMAGE_H} (M-SURF), 2 with M-LDB ({card})")
+    t0 = time.perf_counter()
+    akaze = run_akaze_chain(os.path.join(WORK, "image_chain", "images"))
     log(f"  done in {time.perf_counter() - t0:.1f} s")
 
     paths = {name: ("bundle command 256x32768xK=8, f64", counts)
@@ -2952,6 +3218,8 @@ def main() -> int:
                 recall=scores[1], launches_image_chain=chain["launches"][name],
                 launches_models=models["launches"][name],
                 launches_rig_chain=rig_chain["launches"][name],
+                launches_akaze_chain=akaze["launches"][name],
+                launches_by_input_akaze_chain=akaze["top2_by_input"],
                 **pair_profile,
             ))
             continue
@@ -2973,6 +3241,7 @@ def main() -> int:
                             for k, v in algos.items()})
         kernels[-1]["launches_models"] = models["launches"][name]
         kernels[-1]["launches_rig_chain"] = rig_chain["launches"][name]
+        kernels[-1]["launches_akaze_chain"] = akaze["launches"][name]
         if name == "fused_schur_assembly":
             kernels[-1].update(sub_kernel_ms=schur_split,
                                product_step_torch_mm_ms=product_mm_ms)
@@ -2990,6 +3259,8 @@ def main() -> int:
                                  if k != "launches"}}), flush=True)
     print(json.dumps({"rig_chain": {k: v for k, v in rig_chain.items()
                                     if k != "launches"}}), flush=True)
+    print(json.dumps({"akaze_chain": {k: v for k, v in akaze.items()
+                                      if k != "launches"}}), flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

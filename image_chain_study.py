@@ -11,12 +11,15 @@ through one package: the port (`--package port`, on `--device`) or the JAX packa
 the CPU (`--package jax`, for parity on a host that has it).  With
 `--features-from DIR` the features, EXIF and camera models are copied from
 an earlier run's dataset DIR and detection does not run, which
-separates it from the rest; `--sparse` stops after `reconstruct`.  `--camera TYPE` renders every view
+separates it from the rest; `--until STAGE` stops after that stage
+(`--until reconstruct` for the sparse chain alone).  `--camera TYPE` renders every view
 through `synthetic_images.CAMERA_MODELS[TYPE]` (brown, fisheye_opencv),
 which the camera model overrides give the EXIF's camera; `--rig` renders
 each view as an instance of `synthetic_images.RIG` (a brown camera left
 and a fisheye_opencv camera right, 0.4 m apart), and `create_rig pattern`
-runs after `detect_features`.  Prints one JSON line: the stages' wall
+runs after `detect_features`.  `--jpeg` writes the views as JPEGs (the
+port's codec at cv2.imwrite's defaults, EXIF in APP1) instead of PNGs.
+Prints one JSON line: the stages' wall
 seconds and `synthetic_images.grade_reconstruction`'s grade (shots,
 reconstructions, points, camera-centre RMS after a similarity fit,
 reprojection RMS in pixels) with the calibrated focal, k1 and k2, and with
@@ -43,6 +46,10 @@ outlier filter (`bundle_outlier_filtering_type`).  After the dense stages it add
 sparse points' grade beside the cloud's and the median height of each
 near the ground (metres; 0 on the truth).
 
+`--codec-only` renders view 0 alone, writes it as a JPEG by the port's
+codec (cv2.imwrite's defaults) and prints the decoded pixels' PSNR against
+the render and the encode and decode milliseconds, then stops.
+
     python3 image_chain_study.py --package port --device cpu \\
         --width 640 --height 480 --out build/study/boxes_port
 """
@@ -61,7 +68,6 @@ import numpy as np
 STAGES = ("extract_metadata", "detect_features", "match_features",
           "create_tracks", "reconstruct", "mesh", "undistort",
           "compute_depthmaps")
-SPARSE = STAGES[:5]
 
 
 def _jax_runner():
@@ -122,18 +128,22 @@ def main(argv=None) -> dict:
                    "whole circle")
     p.add_argument("--walls", type=float, default=None)
     p.add_argument("--features-from", default=None)
-    p.add_argument("--sparse", action="store_true",
-                   help="stop after reconstruct (no mesh, undistort or "
-                   "depthmaps)")
+    p.add_argument("--until", default=None, choices=STAGES,
+                   help="stop after this stage (reconstruct: no mesh, "
+                   "undistort or depthmaps)")
     p.add_argument("--camera", default=None,
                    choices=("brown", "fisheye_opencv"),
                    help="render through synthetic_images.CAMERA_MODELS[...]")
     p.add_argument("--rig", action="store_true",
                    help="render synthetic_images.RIG instances and run "
                    "create_rig pattern")
+    p.add_argument("--jpeg", action="store_true",
+                   help="write the views as JPEGs instead of PNGs")
     p.add_argument("--config", default="{}",
                    help="JSON object of config.yaml entries over the "
                    "defaults, e.g. '{\"matching_gps_neighbors\": 8}'")
+    p.add_argument("--codec-only", action="store_true",
+                   help="view 0's JPEG round trip only (PSNR, ms)")
     p.add_argument("--diagnose", action="store_true",
                    help="add the sparse error's diagnosis (the port only)")
     p.add_argument("--out", required=True)
@@ -144,6 +154,8 @@ def main(argv=None) -> dict:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import synthetic_images as si
 
+    if args.codec_only:
+        return codec_reading(si, args)
     run = _jax_runner() if args.package == "jax" else _port_runner()
     from opensfm_tpu_torch.dataset import DataSet
 
@@ -155,9 +167,10 @@ def main(argv=None) -> dict:
         device=args.render_device or args.device, step_deg=step,
         walls=args.walls, config=json.loads(args.config),
         camera=si.CAMERA_MODELS[args.camera] if args.camera else None,
-        rig=si.RIG if args.rig else None)
+        rig=si.RIG if args.rig else None,
+        image_format="jpg" if args.jpeg else "png")
     stages = {"render": time.perf_counter() - t0}
-    todo = SPARSE if args.sparse else STAGES
+    todo = STAGES[:STAGES.index(args.until) + 1] if args.until else STAGES
     if args.rig:
         todo = todo[:2] + ("create_rig",) + todo[2:]
     if args.features_from:
@@ -173,20 +186,30 @@ def main(argv=None) -> dict:
         run(stage, args.out, args.device, *extra)
         stages[stage] = time.perf_counter() - t0
     data = DataSet(args.out)
-    recs = data.load_reconstruction()
-    grade = si.grade_reconstruction(recs, truth, data.load_tracks_manager())
-    best = max(recs, key=lambda r: len(r.shots))
-    cam = next(iter(best.cameras.values()))
     feats = [len(data.load_features(im).points) for im in data.images()]
     out = dict(package=args.package, device=args.device,
                size=[args.width, args.height], views=args.views,
                step_deg=args.step_deg, walls=args.walls,
-               camera=args.camera, rig=args.rig,
+               camera=args.camera, rig=args.rig, jpeg=args.jpeg,
                config=json.loads(args.config),
                features_from=args.features_from, stage_s=stages,
                features_min=int(np.min(feats)),
-               features_mean=float(np.mean(feats)), grade=grade,
-               focal=cam.focal, k1=cam.k1, k2=cam.k2)
+               features_mean=float(np.mean(feats)))
+    if "match_features" in todo:
+        inliers = [len(m) for im in data.images() if data.matches_exists(im)
+                   for m in data.load_matches(im).values()]
+        out.update(pairs=len(inliers),
+                   pairs_matched=int(np.count_nonzero(inliers)),
+                   inliers_min=int(np.min(inliers)),
+                   inliers_mean=float(np.mean(inliers)))
+    if "reconstruct" not in todo:
+        print(json.dumps(out), flush=True)
+        return out
+    recs = data.load_reconstruction()
+    grade = si.grade_reconstruction(recs, truth, data.load_tracks_manager())
+    best = max(recs, key=lambda r: len(r.shots))
+    cam = next(iter(best.cameras.values()))
+    out.update(grade=grade, focal=cam.focal, k1=cam.k1, k2=cam.k2)
     if "compute_depthmaps" in todo:
         from opensfm_tpu_torch import io
         from opensfm_tpu_torch.dataset import UndistortedDataSet
@@ -216,6 +239,32 @@ def main(argv=None) -> dict:
                 sparse_points=si.grade_point_cloud(sparse, grade),
                 ground_height=dict(cloud=_ground_height(points, grade),
                                    sparse=_ground_height(sparse, grade)))
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def codec_reading(si, args) -> dict:
+    """View 0 rendered, encoded by the port's JPEG codec and decoded again:
+    the PSNR against the render, the bytes and the milliseconds."""
+    from opensfm_tpu_torch import io
+
+    R, c = si.view_poses(args.views, args.step_deg or None)[0]
+    rgb = si.render_view(R, c, args.width, args.height, seed=0,
+                         device=args.render_device or args.device)
+    t0 = time.perf_counter()
+    data = io.encode_jpeg(rgb)
+    encode_ms = 1e3 * (time.perf_counter() - t0)
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, "view_000.jpg")
+    with open(path, "wb") as f:
+        f.write(data)
+    t0 = time.perf_counter()
+    back = io.imread(path)
+    decode_ms = 1e3 * (time.perf_counter() - t0)
+    err = back.astype(np.float64) - rgb
+    out = dict(size=[args.width, args.height], bytes=len(data),
+               psnr_db=float(10 * np.log10(255.0**2 / np.mean(err**2))),
+               encode_ms=encode_ms, decode_ms=decode_ms)
     print(json.dumps(out), flush=True)
     return out
 
@@ -260,9 +309,9 @@ def diagnose(data, truth, grade, step_deg, device) -> dict:
     config = data.config
     recmod.remove_outliers(rec, config)
     focal = si.FOCAL_35MM / 36.0
-    poses = {f"view_{i:03d}.png": R
-             for i, (R, _) in enumerate(si.view_poses(len(truth["centres"]),
-                                                      step_deg))}
+    poses = dict(zip(sorted(truth["centres"]),
+                     (R for R, _ in si.view_poses(len(truth["centres"]),
+                                                  step_deg))))
     size = max(next(iter(rec.cameras.values())).width,
                next(iter(rec.cameras.values())).height)
     xt = _truth_points(rec, truth, focal, poses)

@@ -84,14 +84,18 @@ class DataSet(DataSetBase):
 
     def load_image(self, image: str, unchanged: bool = False, anydepth: bool = False,
                    grayscale: bool = False) -> np.ndarray:
-        """The image's pixels (RGB unless `grayscale` or `unchanged`):
-        PNG and PGM/PPM decoded by the port, other formats through cv2 or
+        """The image's pixels (RGB unless `grayscale` or `unchanged`),
+        turned upright for their EXIF orientation unless `unchanged`: PNG,
+        JPEG and PGM/PPM decoded by the port, other formats through cv2 or
         PIL (`io.imread`)."""
         return io.imread(self.image_file(image), grayscale=grayscale,
                          unchanged=unchanged, anydepth=anydepth)
 
     def image_size(self, image: str) -> Tuple[int, int]:
-        return io.image_size(self.image_file(image))
+        """(height, width) as stored, before the EXIF orientation: what the
+        JAX package's DataSet reads through PIL, and so what
+        `extract_metadata` records."""
+        return io.image_size(self.image_file(image), upright=False)
 
     # -- masks / segmentation -------------------------------------------------
     def _grey_png(self, folder: str, image: str) -> Optional[np.ndarray]:
@@ -440,7 +444,8 @@ class UndistortedDataSet:
         io.imwrite(self._undistorted_image_file(image), array)
 
     def undistorted_image_size(self, image: str) -> Tuple[int, int]:
-        return io.image_size(self._undistorted_image_file(image))
+        return io.image_size(self._undistorted_image_file(image),
+                             upright=False)
 
     def _grey_png(self, folder: str, image: str) -> Optional[np.ndarray]:
         return _grey_png(self._fp(folder, image + ".png"))

@@ -14,6 +14,7 @@ from __future__ import annotations
 import datetime
 import logging
 import struct
+from io import BytesIO
 from typing import Any, BinaryIO, Callable, Dict, Optional, Tuple
 
 from opensfm_tpu_torch import io
@@ -105,24 +106,8 @@ _TIFF_TYPES = {1: (1, "B"), 2: (1, "s"), 3: (2, "H"), 4: (4, "L"),
 def exif_block(data: bytes) -> Optional[bytes]:
     """The TIFF-structured EXIF block of a JPEG (APP1 "Exif\\0\\0") or a
     PNG (eXIf chunk) file's bytes; None when there is none."""
-    if data.startswith(io.PNG_SIGNATURE):
-        for kind, payload in io.png_chunks(data):
-            if kind == b"eXIf":
-                return payload[6:] if payload.startswith(b"Exif\0\0") \
-                    else payload
-        return None
-    if data[:2] != b"\xff\xd8":
-        return None
-    pos = 2
-    while pos + 4 <= len(data) and data[pos] == 0xFF:
-        marker = data[pos + 1]
-        if marker in (0xD9, 0xDA):  # end of image, start of scan
-            break
-        n = int.from_bytes(data[pos + 2:pos + 4], "big")
-        if marker == 0xE1 and data[pos + 4:pos + 10] == b"Exif\0\0":
-            return data[pos + 10:pos + 2 + n]
-        pos += 2 + n
-    return None
+    found = io.walk_header(BytesIO(data), data)
+    return found[1] if found is not None else None
 
 
 def _ifd_entries(tiff: bytes, offset: int, bo: str) -> Dict[int, Any]:
@@ -159,6 +144,27 @@ def _ifd_entries(tiff: bytes, offset: int, bo: str) -> Dict[int, Any]:
             value = flat[0] if count == 1 else tuple(flat)
         out[tag] = value
     return out
+
+
+def orientation(data: bytes) -> int:
+    """The EXIF Orientation (1-8) in IFD0 of a JPEG or PNG file's bytes,
+    as cv2.imread reads it; 1 where there is none or it is out of range."""
+    return tiff_orientation(exif_block(data))
+
+
+def tiff_orientation(tiff: Optional[bytes]) -> int:
+    """The Orientation (1-8) in IFD0 of a TIFF-structured EXIF block; 1
+    where there is none or it is out of range."""
+    if not tiff or tiff[:2] not in (b"II", b"MM"):
+        return 1
+    bo = "<" if tiff[:2] == b"II" else ">"
+    try:
+        (ifd0,) = struct.unpack_from(bo + "L", tiff, 4)
+        value = _ifd_entries(tiff, ifd0, bo).get(0x0112, 1)
+        value = int(value[0] if isinstance(value, tuple) else value)
+    except (struct.error, TypeError, ValueError, IndexError):
+        return 1
+    return value if 1 <= value <= 8 else 1
 
 
 def parse_exif(tiff: Optional[bytes]) -> Tuple[Dict[Any, Any], Dict[Any, Any]]:

@@ -3,10 +3,11 @@
 Mirrors the reference `opensfm/features.py`: `FeaturesData` and its
 versioned npz save/load (features.py:50-278), the root/normalisation
 helpers, and the extraction drivers (features.py:281-635) over the port's
-HAHOG/SIFT detector (`opensfm_tpu_torch.ops.features`).  The resize
-(OpenCV's INTER_AREA as two matrix products) and the grey conversion
-(OpenCV's 8-bit fixed-point formula) are the port's own, so nothing here
-needs OpenCV.
+HAHOG/SIFT detector (`opensfm_tpu_torch.ops.features`) and AKAZE
+(`opensfm_tpu_torch.ops.akaze`).  The resize (OpenCV's INTER_AREA as two
+matrix products) and the grey conversion (OpenCV's 8-bit fixed-point
+formula) are the port's own, so only the OpenCV-backed feature types,
+SIFT_CV, ORB and SURF (as in the JAX package), need OpenCV.
 """
 
 from __future__ import annotations
@@ -296,11 +297,85 @@ def extract_features_dog(
     return points, desc
 
 
-def _not_ported(feature_type: str):
-    raise NotImplementedError(
-        f"feature_type {feature_type} is not ported yet (ROADMAP A8: AKAZE, "
-        "and the OpenCV-backed SIFT_CV, ORB and SURF extractors); use HAHOG "
-        "or SIFT")
+def extract_features_sift_cv(image: np.ndarray, config: Dict[str, Any],
+                             features_count: int) -> Tuple[np.ndarray, np.ndarray]:
+    """OpenCV SIFT (the reference's own SIFT path, features.py:364); needs
+    cv2, as in the JAX package."""
+    import cv2
+
+    sift = cv2.SIFT_create(
+        nfeatures=features_count,
+        edgeThreshold=config["sift_edge_threshold"],
+        sigma=config["sift_sigma"],
+    )
+    kp, desc = sift.detectAndCompute(image, None)
+    if desc is None:
+        return np.zeros((0, 4)), np.zeros((0, 128))
+    points = np.array([(k.pt[0], k.pt[1], k.size, k.angle) for k in kp])
+    return points, desc
+
+
+def extract_features_orb(image: np.ndarray, config: Dict[str, Any],
+                         features_count: int) -> Tuple[np.ndarray, np.ndarray]:
+    """OpenCV ORB; needs cv2, as in the JAX package."""
+    import cv2
+
+    orb = cv2.ORB_create(nfeatures=features_count)
+    kp = orb.detect(image, None)
+    kp, desc = orb.compute(image, kp)
+    if desc is None:
+        return np.zeros((0, 4)), np.zeros((0, 32))
+    points = np.array([(k.pt[0], k.pt[1], k.size, k.angle) for k in kp])
+    return points, desc
+
+
+def extract_features_akaze(image: np.ndarray, config: Dict[str, Any],
+                           features_count: int, device=None
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """AKAZE on `device` (`ops/akaze.py`), as the reference's
+    extract_features_akaze (features.py:485-513), with the root-SURF
+    mapping of M-SURF descriptors."""
+    from opensfm_tpu_torch.ops.akaze import extract_akaze_features
+
+    points, desc = extract_akaze_features(image, config, features_count,
+                                          device=device)
+    name = str(config.get("akaze_descriptor", "MSURF")).upper()
+    if config.get("feature_root") and len(desc):
+        if name in ("SURF_UPRIGHT", "MSURF_UPRIGHT"):
+            desc = root_feature_surf(desc, partial=True)
+        elif name in ("SURF", "MSURF"):
+            desc = root_feature_surf(desc, partial=False)
+    return points.astype(float), desc
+
+
+def extract_features_surf(image: np.ndarray, config: Dict[str, Any],
+                          features_count: int) -> Tuple[np.ndarray, np.ndarray]:
+    """OpenCV-contrib SURF with the reference's threshold-anneal loop
+    (features.py:420-474); needs cv2 with its xfeatures2d module."""
+    import cv2
+
+    if not hasattr(cv2, "xfeatures2d"):
+        raise RuntimeError(
+            "OpenCV Contrib modules are required to extract SURF features"
+        )
+    threshold = float(config["surf_hessian_threshold"])
+    detector = cv2.xfeatures2d.SURF_create()
+    detector.setNOctaves(config["surf_n_octaves"])
+    detector.setNOctaveLayers(config["surf_n_octavelayers"])
+    detector.setUpright(config["surf_upright"])
+    while True:
+        detector.setHessianThreshold(threshold)
+        kp = detector.detect(image)
+        if len(kp) >= features_count or threshold <= 0.0001:
+            break
+        threshold = (threshold * 2) / 3
+    kp, desc = detector.compute(image, kp)
+    if desc is None:
+        return np.zeros((0, 4)), np.zeros((0, 64))
+    if config.get("feature_root"):
+        desc = root_feature(desc)
+    points = np.array([(k.pt[0], k.pt[1], k.size, k.angle) for k in kp])
+    return points, desc
 
 
 def extract_features(
@@ -332,8 +407,17 @@ def extract_features(
     if feature_type in ("HAHOG", "SIFT"):
         points, desc = extract_features_dog(image_gray, config, features_count,
                                             device=device)
-    elif feature_type in ("SIFT_CV", "ORB", "AKAZE", "SURF"):
-        _not_ported(feature_type)
+    elif feature_type == "SIFT_CV":
+        points, desc = extract_features_sift_cv(image_gray, config,
+                                                features_count)
+    elif feature_type == "ORB":
+        points, desc = extract_features_orb(image_gray, config, features_count)
+    elif feature_type == "AKAZE":
+        points, desc = extract_features_akaze(image_gray, config,
+                                              features_count, device=device)
+    elif feature_type == "SURF":
+        points, desc = extract_features_surf(image_gray, config,
+                                             features_count)
     else:
         raise ValueError(
             "Unknown feature type (must be SURF, SIFT, AKAZE, HAHOG or ORB)"
@@ -347,11 +431,14 @@ def extract_features(
 
     if (
         config.get("feature_root")
+        and feature_type in ("HAHOG", "SIFT", "SIFT_CV")
         and desc.dtype != np.uint8  # already rooted+quantized on the device
     ):
         desc = np.sqrt(np.maximum(desc, 0))
         # uchar quantization (extract_features_hahog, features.py:526-534).
-        if config.get("hahog_normalize_to_uchar"):
+        if feature_type in ("HAHOG", "SIFT") and config.get(
+            "hahog_normalize_to_uchar"
+        ):
             desc = np.clip(desc * 362.0, 0, 255).round()
     xs = np.clip(points[:, 0].round().astype(int), 0, image.shape[1] - 1)
     ys = np.clip(points[:, 1].round().astype(int), 0, image.shape[0] - 1)

@@ -9,6 +9,7 @@ datasets interoperate in both directions.
 from __future__ import annotations
 
 import json
+from io import BytesIO
 from typing import Any, Dict, IO, List, Optional, TextIO, Tuple
 
 import numpy as np
@@ -655,17 +656,24 @@ def point_cloud_from_ply(fp: TextIO) -> Tuple[np.ndarray, np.ndarray, np.ndarray
 
 
 # ---------------------------------------------------------------------------
-# Images: PNG and PGM/PPM decoded here, other formats through cv2 or PIL
+# Images: PNG, JPEG and PGM/PPM decoded (PNG and JPEG also encoded) here,
+# other formats through cv2 or PIL
 # ---------------------------------------------------------------------------
 
 IMAGE_EXTENSIONS = {"jpg", "jpeg", "png", "tif", "tiff", "pgm", "pnm", "gif",
                     "bmp"}
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 # Grey from RGB as cv2.imread(..., IMREAD_GRAYSCALE) gives it: libpng's
-# rgb_to_gray (15-bit weights, truncated) for PNG, and OpenCV's 14-bit
-# rounded weights (icvCvt_BGR2Gray_8u) for PPM.
+# rgb_to_gray (15-bit weights, truncated at 8 bits, rounded at 16) for PNG,
+# and OpenCV's 14-bit rounded weights (icvCvt_BGR2Gray_8u) for PPM.
 _PNG_GREY = (9797, 19234, 3737, 15, 0)
+_PNG_GREY16 = (9797, 19234, 3737, 15, 1 << 14)
 _CV_GREY = (4899, 9617, 1868, 14, 1 << 13)
 
 
@@ -736,26 +744,113 @@ def _unfilter_rows(raw: np.ndarray, height: int, stride: int,
     return out[1:]
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """Pixels of an 8-bit non-interlaced PNG (grey, grey+alpha, RGB, RGBA)
-    as stored: [H, W] for grey, else [H, W, C] in file order (R, G, B, A).
-    Raises UnsupportedImage for other variants (palette, 16-bit,
-    interlaced)."""
+def _png_samples(raw: np.ndarray, pos: int, w: int, h: int, c: int,
+                 depth: int):
+    """The [h, w, c] samples of one (sub-)image's filtered scanlines at
+    `raw[pos:]`, and the position after them."""
+    stride = (w * c * depth + 7) // 8
+    rows = raw[pos:pos + h * (stride + 1)]
+    if rows.size < h * (stride + 1):
+        raise ValueError("truncated PNG image data")
+    rows = _unfilter_rows(rows.reshape(h, stride + 1), h, stride,
+                          max(1, c * depth // 8))
+    if depth == 8:
+        samples = rows[:, :w * c]
+    elif depth == 16:
+        samples = rows[:, :2 * w * c].copy().view(">u2").astype(np.uint16)
+    else:
+        bits = np.unpackbits(rows, axis=1)[:, :w * c * depth]
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        samples = (bits.reshape(h, w * c, depth) * weights).sum(
+            -1, dtype=np.uint8)
+    return samples.reshape(h, w, c), pos + h * (stride + 1)
+
+
+def _png_decode(data: bytes):
+    """(pixels [H, W, C] in file channel order, colour type, tRNS payload)
+    of a PNG: 8-bit as uint8 and 16-bit as uint16 samples, grey of 1, 2 or
+    4 bits scaled to 8 (x 255, 85, 17, as libpng's expand), a palette
+    expanded to RGB, or RGBA where a tRNS chunk gives its alpha, and Adam7
+    interlacing undone.  Raises UnsupportedImage for invalid headers."""
     import zlib
 
     w, h, depth, ctype, interlace = _png_header(data)
-    if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
+    if ctype not in _PNG_DEPTHS or depth not in _PNG_DEPTHS[ctype] \
+            or interlace not in (0, 1):
         raise UnsupportedImage(
             f"PNG of bit depth {depth}, colour type {ctype}, interlace "
-            f"{interlace}: the port decodes 8-bit non-interlaced grey, "
-            f"grey+alpha, RGB and RGBA")
+            f"{interlace}")
     c = _PNG_CHANNELS[ctype]
-    idat = b"".join(p for k, p in png_chunks(data) if k == b"IDAT")
-    raw = np.frombuffer(zlib.decompress(idat), dtype=np.uint8)
-    stride = w * c
-    raw = raw[:h * (stride + 1)].reshape(h, stride + 1)
-    pix = _unfilter_rows(raw, h, stride, c)
-    return pix.reshape(h, w) if c == 1 else pix.reshape(h, w, c)
+    chunks = list(png_chunks(data))
+    raw = np.frombuffer(zlib.decompress(
+        b"".join(p for k, p in chunks if k == b"IDAT")), dtype=np.uint8)
+    trns = next((p for k, p in chunks if k == b"tRNS"), None)
+    if not interlace:
+        pix, _ = _png_samples(raw, 0, w, h, c, depth)
+    else:
+        pix = np.zeros((h, w, c), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+            if pw > 0 and ph > 0:
+                sub, pos = _png_samples(raw, pos, pw, ph, c, depth)
+                pix[y0::dy, x0::dx] = sub
+    if ctype == 3:
+        plte = next((p for k, p in chunks if k == b"PLTE"), None)
+        if plte is None:
+            raise UnsupportedImage("palette PNG without PLTE")
+        table = np.zeros((256, 4), np.uint8)
+        table[:, 3] = 255
+        n = len(plte) // 3
+        table[:n, :3] = np.frombuffer(plte[:3 * n], np.uint8).reshape(n, 3)
+        if trns:
+            table[:len(trns), 3] = np.frombuffer(trns[:256], np.uint8)
+        pix = table[pix[..., 0], :4 if trns else 3]
+    elif depth < 8:
+        pix = pix * np.uint8(255 // ((1 << depth) - 1))
+    return pix, ctype, trns
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """Pixels of a PNG as stored: [H, W] for grey, else [H, W, C] in file
+    order (R, G, B, A); 16-bit samples as uint16, palettes expanded to RGB
+    (RGBA with a tRNS chunk), grey below 8 bits scaled to 8 bits, Adam7
+    interlacing undone."""
+    pix = _png_decode(data)[0]
+    return pix[..., 0] if pix.shape[2] == 1 else pix
+
+
+def _png_imread(data: bytes, grayscale: bool, unchanged: bool,
+                anydepth: bool) -> np.ndarray:
+    """A PNG's pixels as cv2.imread gives them (in RGB order) before the
+    EXIF orientation: UNCHANGED keeps 16 bits and gives RGBA for grey+alpha
+    (GGGA), RGBA and palette or RGB with a tRNS chunk, the stored channels
+    otherwise; colour and grey reads drop alpha, take libpng's rgb_to_gray
+    for grey, and keep 16 bits only with `anydepth` (else the high byte,
+    libpng's strip_16)."""
+    pix, ctype, trns = _png_decode(data)
+    c = pix.shape[2]
+    if unchanged:
+        if c == 2:  # grey+alpha -> GGGA
+            return pix[..., [0, 0, 0, 1]]
+        if ctype == 2 and trns and len(trns) >= 6:  # tRNS colour -> alpha
+            key = np.frombuffer(trns[:6], ">u2").astype(pix.dtype)
+            top = np.iinfo(pix.dtype).max
+            alpha = np.where((pix == key).all(-1), 0, top).astype(pix.dtype)
+            return np.concatenate([pix, alpha[..., None]], axis=2)
+        return pix[..., 0] if c == 1 else pix
+    if c >= 3 and grayscale:
+        out = _grey(pix[..., :3], _PNG_GREY16 if pix.dtype == np.uint16
+                    else _PNG_GREY, pix.dtype)
+    elif c >= 3:
+        out = pix[..., :3]
+    elif grayscale:
+        out = pix[..., 0]
+    else:
+        out = np.repeat(pix[..., :1], 3, axis=2)
+    if pix.dtype == np.uint16 and not anydepth:
+        out = (out >> 8).astype(np.uint8)
+    return out
 
 
 def _png_chunk(kind: bytes, payload: bytes) -> bytes:
@@ -778,7 +873,7 @@ def encode_png(image: np.ndarray, level: int = 1) -> bytes:
     if pix.ndim == 3 and pix.shape[2] == 1:
         pix = pix[..., 0]
     c = 1 if pix.ndim == 2 else pix.shape[2]
-    ctype = {v: k for k, v in _PNG_CHANNELS.items()}.get(c)
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}.get(c)
     if pix.ndim not in (2, 3) or ctype is None:
         raise ValueError(f"encode_png takes 1 to 4 channels, not shape "
                          f"{pix.shape}")
@@ -794,21 +889,38 @@ def encode_png(image: np.ndarray, level: int = 1) -> bytes:
             + _png_chunk(b"IEND", b""))
 
 
+def encode_jpeg(image: np.ndarray) -> bytes:
+    """A baseline JPEG of uint8 `image` ([H, W] grey, [H, W, 3] RGB, or
+    RGBA whose alpha is dropped) by the port's own codec, as cv2.imwrite
+    writes it at its defaults (quality 95, 4:2:0, the standard Huffman
+    tables): the same bytes in the tests."""
+    from opensfm_tpu_torch import native
+
+    pix = np.asarray(image)
+    if pix.dtype != np.uint8:
+        raise ValueError(f"encode_jpeg takes uint8 pixels, not {pix.dtype}")
+    if pix.ndim == 3 and pix.shape[2] == 4:
+        pix = pix[..., :3]
+    return native.jpeg_encode(pix)
+
+
 def imwrite(path: str, image: np.ndarray) -> None:
     """Write uint8 pixels in RGB(A) order (as `imread` gives them): PNG
-    by `encode_png`, any other extension through cv2, which must then be
-    installed."""
-    if path.rsplit(".", 1)[-1].lower() == "png":
+    by `encode_png` and JPEG by `encode_jpeg`, any other extension through
+    cv2, which must then be installed."""
+    ext = path.rsplit(".", 1)[-1].lower()
+    if ext in ("png", "jpg", "jpeg"):
+        data = encode_png(image) if ext == "png" else encode_jpeg(image)
         with open(path, "wb") as f:
-            f.write(encode_png(image))
+            f.write(data)
         return
     try:
         import cv2
     except ImportError:
         raise ImportError(
-            f"writing {path.rsplit('.', 1)[-1].upper()} images needs cv2 "
-            f"(opencv-python), which is not installed; the port writes PNG "
-            f"itself: {path}") from None
+            f"writing {ext.upper()} images needs cv2 (opencv-python), which "
+            f"is not installed; the port writes PNG and JPEG itself: "
+            f"{path}") from None
     if image.ndim == 3 and image.shape[2] >= 3:
         image = image.copy()
         image[..., :3] = image[..., [2, 1, 0]]  # RGB -> BGR
@@ -848,11 +960,38 @@ def decode_pnm(data: bytes) -> np.ndarray:
     return pix.reshape(h, w) if c == 1 else pix.reshape(h, w, c)
 
 
-def _grey(rgb: np.ndarray, weights) -> np.ndarray:
+def _grey(rgb: np.ndarray, weights, dtype=np.uint8) -> np.ndarray:
     wr, wg, wb, shift, rnd = weights
     x = rgb.astype(np.int64)
     return ((wr * x[..., 0] + wg * x[..., 1] + wb * x[..., 2] + rnd)
-            >> shift).astype(np.uint8)
+            >> shift).astype(dtype)
+
+
+def _jpeg_imread(data: bytes, grayscale: bool) -> np.ndarray:
+    """A JPEG's pixels by the port's codec, as cv2.imread gives them (RGB
+    order) before the EXIF orientation: [H, W, 3] for a YCbCr file unless
+    `grayscale` (its Y plane, libjpeg's grey output), [H, W] for a grey
+    file."""
+    from opensfm_tpu_torch import native
+
+    try:
+        return native.jpeg_decode(data, grey=grayscale)
+    except native.JpegUnsupported as e:
+        raise UnsupportedImage(f"JPEG variant: {e}") from None
+
+
+def apply_orientation(image: np.ndarray, orientation: int) -> np.ndarray:
+    """`image` turned upright for its EXIF orientation (1-8), as OpenCV's
+    ExifTransform does."""
+    if orientation in (5, 6, 7, 8):
+        image = image.swapaxes(0, 1)
+    flip = {2: (slice(None), slice(None, None, -1)),
+            3: (slice(None, None, -1), slice(None, None, -1)),
+            4: (slice(None, None, -1),),
+            6: (slice(None), slice(None, None, -1)),
+            7: (slice(None, None, -1), slice(None, None, -1)),
+            8: (slice(None, None, -1),)}.get(orientation)
+    return image[flip] if flip else image
 
 
 def _library_imread(path: str, grayscale: bool, unchanged: bool,
@@ -882,8 +1021,8 @@ def _library_imread(path: str, grayscale: bool, unchanged: bool,
     except ImportError:
         raise ImportError(
             f"reading {ext.upper()} images needs cv2 (opencv-python) or PIL "
-            f"(Pillow), and neither is installed; the port decodes PNG and "
-            f"PGM/PPM itself: {path}") from None
+            f"(Pillow), and neither is installed; the port decodes PNG, JPEG "
+            f"and PGM/PPM itself: {path}") from None
     with Image.open(path) as img:
         if anydepth and img.mode.startswith("I;16"):
             return np.asarray(img).astype(np.uint16)
@@ -896,83 +1035,132 @@ def _library_imread(path: str, grayscale: bool, unchanged: bool,
 
 def imread(path: str, grayscale: bool = False, unchanged: bool = False,
            anydepth: bool = False) -> np.ndarray:
-    """An image as uint8 pixels, as cv2.imread gives them with RGB order:
-    [H, W, 3] RGB by default (grey replicated, alpha dropped), [H, W] with
+    """An image's pixels as cv2.imread gives them, with RGB order: [H, W, 3]
+    RGB by default (grey replicated, alpha dropped), [H, W] with
     `grayscale`, the stored channels with `unchanged` (grey+alpha as four
-    channels, as OpenCV gives it).  PNG and binary
-    PGM/PPM are decoded here; other formats need cv2 or PIL, and so do
-    16-bit PNGs, which `anydepth` keeps at 16 bits as cv2 does with
-    IMREAD_ANYDEPTH."""
+    channels, as OpenCV gives it), 16-bit samples kept with `anydepth` or
+    `unchanged`.  Colour and grey reads turn the image upright for its EXIF
+    orientation, as cv2 does; `unchanged` does not.  PNG (every variant),
+    JPEG (baseline and progressive Huffman, by the native codec) and
+    binary PGM/PPM are decoded here; other formats and JPEG variants need
+    cv2 or PIL."""
     with open(path, "rb") as f:
         data = f.read()
     try:
         if data.startswith(PNG_SIGNATURE):
-            pix, weights = decode_png(data), _PNG_GREY
+            image = _png_imread(data, grayscale, unchanged, anydepth)
+        elif data[:2] == b"\xff\xd8":
+            image = _jpeg_imread(data, grayscale)
+            if image.ndim == 2 and not (grayscale or unchanged):
+                image = np.repeat(image[:, :, None], 3, axis=2)
         elif data[:2] in (b"P5", b"P6"):
-            pix, weights = decode_pnm(data), _CV_GREY
+            pix = decode_pnm(data)
+            if unchanged or (pix.ndim == 3) != grayscale:
+                return pix.copy()
+            if grayscale:
+                return _grey(pix, _CV_GREY)
+            return np.repeat(pix[:, :, None], 3, axis=2)
         else:
             return _library_imread(path, grayscale, unchanged, anydepth)
     except UnsupportedImage:
         return _library_imread(path, grayscale, unchanged, anydepth)
-    if unchanged:
-        if pix.ndim == 3 and pix.shape[2] == 2:  # grey+alpha -> GGGA
-            return np.ascontiguousarray(pix[..., [0, 0, 0, 1]])
-        return pix.copy()
-    if pix.ndim == 2:
-        grey = pix
-    elif pix.shape[2] == 2:
-        grey = pix[..., 0]
-    else:
-        if not grayscale:
-            return np.ascontiguousarray(pix[..., :3])
-        grey = _grey(pix, weights)
-    if grayscale:
-        return np.ascontiguousarray(grey)
-    return np.repeat(grey[:, :, None], 3, axis=2)
+    if not unchanged:
+        from opensfm_tpu_torch import exif
 
-
-def _jpeg_size(data: bytes) -> Optional[Tuple[int, int]]:
-    """(height, width) from a JPEG's first SOF marker."""
-    pos = 2
-    while pos + 4 <= len(data):
-        if data[pos] != 0xFF:
-            return None
-        marker = data[pos + 1]
-        if marker == 0xFF:
-            pos += 1
-            continue
-        n = int.from_bytes(data[pos + 2:pos + 4], "big")
-        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            return (int.from_bytes(data[pos + 5:pos + 7], "big"),
-                    int.from_bytes(data[pos + 7:pos + 9], "big"))
-        pos += 2 + n
-    return None
+        image = apply_orientation(image, exif.orientation(data))
+    return np.ascontiguousarray(image)
 
 
 def image_size_from_header(head: bytes) -> Optional[Tuple[int, int]]:
-    """(height, width) read from the first bytes of a PNG, PGM/PPM or JPEG
-    file; None for other formats."""
-    if head.startswith(PNG_SIGNATURE):
-        w, h = _png_header(head[:64])[:2]
-        return h, w
+    """(height, width) as stored, read from the first bytes of a PNG,
+    PGM/PPM or JPEG file (no EXIF orientation); None for other formats."""
     if head[:2] in (b"P5", b"P6"):
         _, w, h, _, _ = _pnm_header(head)
         return h, w
-    if head[:2] == b"\xff\xd8":
-        return _jpeg_size(head)
-    return None
+    found = walk_header(BytesIO(head), head)
+    return found[0] if found is not None else None
 
 
-def image_size(path: str) -> Tuple[int, int]:
-    """(height, width) of an image from its header (PNG, PGM/PPM and JPEG
-    here; other formats through PIL or cv2)."""
+def walk_header(f, data: bytes):
+    """((height, width) as stored, the EXIF block or None) of the PNG or
+    JPEG file `f` whose first bytes are `data`, reading only headers: the
+    chunk or segment headers by seeks, and the payloads of IHDR / SOF and of
+    the EXIF chunk or APP1 segment; None for other formats."""
+    size, tiff = None, None
+    if data.startswith(PNG_SIGNATURE):
+        f.seek(len(PNG_SIGNATURE))
+        while True:
+            head = f.read(8)
+            if len(head) < 8 or head[4:] == b"IEND":
+                break
+            n, kind = int.from_bytes(head[:4], "big"), head[4:]
+            if kind in (b"IHDR", b"eXIf"):
+                payload = f.read(n)
+                f.seek(4, 1)
+                if kind == b"IHDR":
+                    size = (int.from_bytes(payload[4:8], "big"),
+                            int.from_bytes(payload[0:4], "big"))
+                else:
+                    tiff = payload[6:] if payload.startswith(b"Exif\0\0") \
+                        else payload
+            else:
+                f.seek(n + 4, 1)
+        return size, tiff
+    if data[:2] != b"\xff\xd8":
+        return None
+    # The markers are walked by the JPEG codec's rules: bytes between
+    # markers are skipped, and SOI, RSTn and TEM carry no length.
+    f.seek(2)
+    while True:
+        head = f.read(2)
+        if len(head) < 2:
+            break
+        marker = head[1]
+        if head[0] != 0xFF or marker == 0xFF:
+            f.seek(-1, 1)
+            continue
+        if marker in (0xD9, 0xDA):  # end of image, start of scan
+            break
+        if marker in (0x01, 0xD8) or 0xD0 <= marker <= 0xD7:
+            continue
+        n = int.from_bytes(f.read(2), "big")
+        if n < 2:
+            break
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            sof = f.read(5)
+            if len(sof) < 5:
+                break
+            if size is None:
+                size = (int.from_bytes(sof[1:3], "big"),
+                        int.from_bytes(sof[3:5], "big"))
+            f.seek(n - 7, 1)
+        elif marker == 0xE1 and tiff is None:
+            payload = f.read(n - 2)
+            if payload.startswith(b"Exif\0\0"):
+                tiff = payload[6:]
+        else:
+            f.seek(n - 2, 1)
+    return size, tiff
+
+
+def image_size(path: str, upright: bool = True) -> Tuple[int, int]:
+    """(height, width) of an image as `imread(path, grayscale=True)` gives
+    it (the JAX package's `IoFilesystemDefault.image_size`), from the
+    headers of a PNG, PGM/PPM or JPEG, swapped for EXIF orientations 5-8
+    unless `upright` is False (the size as stored, which the JAX package's
+    `DataSet.image_size` reads through PIL); other formats through PIL or
+    cv2."""
+    from opensfm_tpu_torch import exif
+
     with open(path, "rb") as f:
         head = f.read(1 << 16)
-        size = image_size_from_header(head)
-        if size is None and head[:2] == b"\xff\xd8":
-            f.seek(0)
-            size = _jpeg_size(f.read())
-    if size is not None:
+        if head[:2] in (b"P5", b"P6"):
+            return image_size_from_header(head)
+        found = walk_header(f, head)
+    if found is not None and found[0] is not None:
+        size, tiff = found
+        if upright and exif.tiff_orientation(tiff) >= 5:
+            size = (size[1], size[0])
         return size
     try:
         from PIL import Image

@@ -1,5 +1,5 @@
 """ctypes bindings for the native runtime core (tracks codec + union-find,
-and the PNG decoder's row unfiltering).
+and the PNG decoder's row unfiltering) and for the JPEG codec.
 
 Port of `opensfm_tpu.native`: the same C ABI (`tracks_core.cpp`, this
 package's own copy), compiled with g++ at first use instead of at import,
@@ -9,6 +9,10 @@ the reference, callers take the native path when the library is available
 and their pure-Python path otherwise: `available()` tries the build once
 and caches the answer in `NATIVE_AVAILABLE` (None until tried; a test sets
 it to False to force the Python paths).
+
+The JPEG codec (`jpeg_codec.cpp`) is a library of its own, built the same
+way on first use.  It has no Python path: where it cannot build, reading or
+writing a JPEG raises `JpegCodecUnavailable` with the build's error.
 """
 
 from __future__ import annotations
@@ -27,10 +31,13 @@ import numpy as np
 logger = logging.getLogger(__name__)
 
 _SRC = Path(__file__).resolve().parent / "tracks_core.cpp"
+_JPEG_SRC = Path(__file__).resolve().parent / "jpeg_codec.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 
 NATIVE_AVAILABLE: Optional[bool] = None  # None: the build was not tried yet
 _lib = None
+_jpeg_lib = None
+_jpeg_error: Optional[str] = None
 _lock = threading.Lock()
 
 
@@ -38,21 +45,39 @@ class NativeError(RuntimeError):
     """Raised when the native library rejects its input."""
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"_tracks_core_{digest}.so"
+class JpegCodecUnavailable(NativeError, ImportError):
+    """The JPEG codec could not be built or loaded on this host (an
+    ImportError, like a missing image library)."""
 
 
-def _build() -> Path:
-    so = library_path()
+class JpegUnsupported(NativeError):
+    """A JPEG variant the codec does not decode (arithmetic coding,
+    lossless, 12-bit, CMYK, ...)."""
+
+
+_CXXFLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+
+
+def library_path(src: Path = _SRC) -> Path:
+    """The library's path: its name carries a hash of the source and the
+    compiler flags, so an edited source rebuilds."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_CXXFLAGS).encode()
+                            ).hexdigest()[:16]
+    return BUILD_DIR / f"_{src.stem}_{digest}.so"
+
+
+def _build(src: Path = _SRC) -> Path:
+    so = library_path(src)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(tmp),
-           str(_SRC)]
+    cmd = ["g++", *_CXXFLAGS, "-o", str(tmp), str(src)]
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=120)
+        if proc.returncode:
+            raise NativeError(f"{' '.join(cmd)} failed: {proc.stderr}")
         os.replace(tmp, so)  # atomic: safe under concurrent builders
     finally:
         if tmp.exists():
@@ -226,3 +251,93 @@ def png_unfilter(raw: np.ndarray, height: int, stride: int,
                         _as_ptr(out, ctypes.c_uint8)):
         raise NativeError("png_unfilter: unknown row filter")
     return out
+
+
+# ---------------------------------------------------------------------------
+# JPEG codec
+# ---------------------------------------------------------------------------
+
+
+def _jpeg() -> ctypes.CDLL:
+    """The JPEG codec library, built on the first call; raises
+    JpegCodecUnavailable with the build's error where it cannot be built or
+    loaded."""
+    global _jpeg_lib, _jpeg_error
+    if _jpeg_lib is None and _jpeg_error is None:
+        with _lock:
+            if _jpeg_lib is None and _jpeg_error is None:
+                try:
+                    lib = ctypes.CDLL(str(_build(_JPEG_SRC)))
+                    u8p, c_ll = ctypes.POINTER(ctypes.c_uint8), ctypes.c_longlong
+                    i32p = ctypes.POINTER(ctypes.c_int32)
+                    lib.jpeg_info.argtypes = [u8p, c_ll, i32p, ctypes.c_char_p,
+                                              ctypes.c_int]
+                    lib.jpeg_info.restype = ctypes.c_int
+                    lib.jpeg_decode.argtypes = [u8p, c_ll, ctypes.c_int, u8p,
+                                                c_ll, ctypes.c_char_p,
+                                                ctypes.c_int]
+                    lib.jpeg_decode.restype = ctypes.c_int
+                    lib.jpeg_encode.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_int, ctypes.POINTER(c_ll)]
+                    lib.jpeg_encode.restype = ctypes.c_void_p
+                    lib.jpeg_free.argtypes = [ctypes.c_void_p]
+                    lib.jpeg_free.restype = None
+                    _jpeg_lib = lib
+                except Exception as exc:  # toolchain missing, compile error
+                    _jpeg_error = f"the JPEG codec could not be built: {exc}"
+    if _jpeg_lib is None:
+        raise JpegCodecUnavailable(_jpeg_error)
+    return _jpeg_lib
+
+
+def _jpeg_call(fn, data: bytes, *args) -> None:
+    err = ctypes.create_string_buffer(256)
+    buf = np.frombuffer(data, dtype=np.uint8)
+    code = fn(_as_ptr(buf, ctypes.c_uint8), len(data), *args, err, 256)
+    if code == 1:
+        raise JpegUnsupported(err.value.decode())
+    if code:
+        raise NativeError(f"corrupt JPEG data: {err.value.decode()}")
+
+
+def jpeg_info(data: bytes) -> Tuple[int, int, int, bool]:
+    """(height, width, components, progressive) from a JPEG's frame header."""
+    info = np.zeros(4, dtype=np.int32)
+    _jpeg_call(_jpeg().jpeg_info, data, _as_ptr(info, ctypes.c_int32))
+    return int(info[0]), int(info[1]), int(info[2]), bool(info[3])
+
+
+def jpeg_decode(data: bytes, grey: bool = False) -> np.ndarray:
+    """Pixels of a JPEG file's bytes, as libjpeg gives them at OpenCV's
+    defaults: [H, W] for a grey file or with `grey` (the Y plane of a
+    YCbCr file), else [H, W, 3] RGB.  Raises JpegUnsupported for the
+    variants the codec does not decode."""
+    h, w, c, _ = jpeg_info(data)
+    c = 1 if grey or c == 1 else 3
+    out = np.empty((h, w, c) if c == 3 else (h, w), dtype=np.uint8)
+    _jpeg_call(_jpeg().jpeg_decode, data, int(grey),
+               _as_ptr(out, ctypes.c_uint8), out.size)
+    return out
+
+
+def jpeg_encode(image: np.ndarray) -> bytes:
+    """A baseline JFIF JPEG of uint8 `image` ([H, W] grey or [H, W, 3]
+    RGB) at quality 95, 4:2:0 for colour: what cv2.imwrite writes at its
+    defaults."""
+    pix = np.ascontiguousarray(image, dtype=np.uint8)
+    if pix.ndim == 3 and pix.shape[2] == 1:
+        pix = pix[..., 0]
+    if not (pix.ndim == 2 or (pix.ndim == 3 and pix.shape[2] == 3)):
+        raise ValueError(f"jpeg_encode takes grey or RGB pixels, not shape "
+                         f"{pix.shape}")
+    lib = _jpeg()
+    n = ctypes.c_longlong()
+    buf = lib.jpeg_encode(_as_ptr(pix, ctypes.c_uint8), pix.shape[0],
+                          pix.shape[1], 1 if pix.ndim == 2 else 3,
+                          ctypes.byref(n))
+    if not buf:
+        raise NativeError(f"jpeg_encode: cannot encode shape {pix.shape}")
+    try:
+        return ctypes.string_at(buf, n.value)
+    finally:
+        lib.jpeg_free(buf)

@@ -15,7 +15,7 @@
 //   - png_unfilter: the PNG row filters' inverse (io.decode_png), whose
 //     Average and Paeth filters run left to right along each row.
 //
-// Build: g++ -O2 -std=c++17 -shared -fPIC (see opensfm_tpu_torch/native/__init__.py).
+// Build: g++ -O3 -std=c++17 -shared -fPIC (see opensfm_tpu_torch/native/__init__.py).
 
 #include <cstdint>
 #include <cstdio>

@@ -17,7 +17,9 @@ the product on the INT8 tensor cores (exact integers; one launch, or two
 with the slice merge); float descriptors, mixed pairs and wider uint8 ones
 run it on the FP32 pipes (four launches: two row-norm passes, the search
 and the merge).  U8_MAX_D = 129 covers every OpenSfM feature type (SIFT
-and HAHOG 128, 129 with the segment column; AKAZE 61; ORB 32); up to it
+and HAHOG 128, 129 with the segment column; ORB 32; the reference's packed
+AKAZE M-LDB 61, where the port's unpacked M-LDB bits are 486 wide and take
+the FP32 route with M-SURF's 64 floats); up to it
 every uint8 distance is an exact integer in float32.  Up to
 U8_BITWISE_MAX_D = 258 (D * 255^2 < 2^24) the products stay exact and the
 only rounding is that of the norms' float32 sum, which both kernels
@@ -27,7 +29,9 @@ JAX package agree bitwise; wider uint8 descriptors round like float ones.
 The wrapper runs the plain PyTorch version when its tensors lie on the CPU
 and launches the kernel when they lie on a CUDA device; it never falls back
 from one to the other.  `top2_sqdist.launches` counts the calls that
-launched the kernel.
+launched the kernel, and `top2_sqdist.launches_by_input` the same calls by
+their descriptors: "uint8" (the INT8 route), "uint8_wide" (uint8 wider
+than U8_MAX_D, the FP32 route) and "float" (the FP32 route).
 """
 
 from __future__ import annotations
@@ -143,6 +147,7 @@ def top2_sqdist(d1: torch.Tensor, d2: torch.Tensor, n2: int,
             raise TypeError(f"descriptors must be uint8 or float, not "
                             f"{d1.dtype}, {d2.dtype}")
     route = kernel_route(d1, d2)
+    uint8_in = d1.dtype == torch.uint8 and d2.dtype == torch.uint8
     if route == "f32":
         d1, d2 = d1.to(torch.float32), d2.to(torch.float32)
     d1, d2 = d1.contiguous(), d2.contiguous()
@@ -178,7 +183,11 @@ def top2_sqdist(d1: torch.Tensor, d2: torch.Tensor, n2: int,
         raise RuntimeError(f"top2_sqdist kernel launch failed (cuda error "
                            f"{err})")
     top2_sqdist.launches += 1
+    kind = ("uint8" if route == "u8" else "uint8_wide" if
+            uint8_in else "float")
+    top2_sqdist.launches_by_input[kind] += 1
     return idx, dist
 
 
 top2_sqdist.launches = 0
+top2_sqdist.launches_by_input = {"uint8": 0, "uint8_wide": 0, "float": 0}

@@ -4,9 +4,10 @@
 non-planar textured scene (two boxes on a ground plane, each face with its
 own multi-octave value-noise texture and shade; optionally ringed by four
 textured walls) with torch on a device,
-from a seed, and writes them as PNGs with an eXIf chunk (Make, Model,
-FocalLengthIn35mmFilm, a capture time and GPS with noise) by its own PNG
-and EXIF writers, so neither OpenCV nor PIL is needed.  It returns the true
+from a seed, and writes them as PNGs with an eXIf chunk or as JPEGs with an
+APP1 segment (Make, Model, FocalLengthIn35mmFilm, a capture time and GPS
+with noise) by its own PNG and EXIF writers and the port's JPEG codec, so
+neither OpenCV nor PIL is needed.  It returns the true
 camera centres; `grade_reconstruction` holds a
 reconstruction's camera centres against them after a similarity fit.  Views
 may be rendered through any camera model (`cameras.bearing`) and as rig
@@ -280,6 +281,22 @@ def write_png(path: str, rgb: np.ndarray, exif: Optional[bytes] = None) -> None:
         f.write(data)
 
 
+def write_jpeg(path: str, rgb: np.ndarray, exif: Optional[bytes] = None) -> None:
+    """A JPEG of RGB pixels by the port's codec at cv2.imwrite's defaults
+    (quality 95, 4:2:0), with an optional APP1 "Exif" segment after the
+    JFIF APP0 segment."""
+    from opensfm_tpu_torch import io
+
+    data = io.encode_jpeg(rgb)
+    if exif:
+        app1 = b"Exif\0\0" + exif
+        at = 2 + 2 + int.from_bytes(data[4:6], "big")  # after SOI and APP0
+        data = (data[:at] + b"\xff\xe1" + struct.pack(">H", len(app1) + 2)
+                + app1 + data[at:])
+    with open(path, "wb") as f:
+        f.write(data)
+
+
 def camera_key(model: str, width: int, height: int) -> str:
     """The camera id `extract_metadata` gives a render's EXIF (Make, Model,
     size, perspective, FOCAL_35MM / 36): the key of its camera model
@@ -297,20 +314,20 @@ def write_image_dataset(path: str, n_views: int = 16, width: int = 2048,
                         walls: Optional[float] = None,
                         camera: Optional[Tuple[str, Tuple[float, ...]]] = None,
                         rig: Optional[List[Tuple[str, Tuple[str, Tuple[float, ...]],
-                                                 float]]] = None
-                        ) -> Dict[str, Any]:
+                                                 float]]] = None,
+                        image_format: str = "png") -> Dict[str, Any]:
     """Render `n_views` views (`view_poses`) of `scene_boxes(walls)` into
-    `path`/images as PNGs with EXIF (GPS with GPS_NOISE metres of noise)
-    and write `config.yaml` (`config` over the defaults).  Returns
-    {"centres": {image: true centre}}.
+    `path`/images as PNGs with EXIF (GPS with GPS_NOISE metres of noise),
+    or JPEGs with `image_format="jpg"`, and write `config.yaml` (`config`
+    over the defaults).  Returns {"centres": {image: true centre}}.
 
     `camera` (projection type, parameters) renders through that model and
     writes `camera_models_overrides.json`, which gives the EXIF's camera
     its true model.  `rig` [(name, camera, offset in metres along the view's
     x axis)] renders each view as a rig instance of one image per rig
-    camera, `view_<i>_<name>.png` with EXIF Model `<MODEL> <name>` (one
-    camera key per rig camera, each overridden with its model); the truth
-    then also holds {"rig_cameras": {name: (rotation, translation)}}, the
+    camera, `view_<i>_<name>.<image_format>` with EXIF Model
+    `<MODEL> <name>` (one camera key per rig camera, each overridden with
+    its model); the truth then also holds {"rig_cameras": {name: (rotation, translation)}}, the
     instance-to-camera poses of a frame at the view's pose, and
     `rig_patterns` {name: regex} for `create_rig pattern`."""
     from opensfm_tpu_torch import geo, io
@@ -339,17 +356,18 @@ def write_image_dataset(path: str, n_views: int = 16, width: int = 2048,
     for i, (R, c) in enumerate(view_poses(n_views, step_deg)):
         gps_c = c + rng.normal(0, GPS_NOISE, 3)
         for name, model_cam, off in members:
-            image = (f"view_{i:03d}.png" if name is None
-                     else f"view_{i:03d}_{name}.png")
+            image = (f"view_{i:03d}.{image_format}" if name is None
+                     else f"view_{i:03d}_{name}.{image_format}")
             centre = c + off * R[0]
             rgb = render_view(R, centre, width, height, seed=seed,
                               device=device, walls=walls, camera=model_cam)
             lat, lon, alt = ref.to_lla(*(gps_c + off * R[0]))
-            write_png(os.path.join(path, "images", image), rgb,
-                      exif_tiff(lat, lon, alt, f"2024:05:01 12:{i // 60:02d}:"
-                                               f"{i % 60:02d}",
-                                model=MODEL if name is None
-                                else f"{MODEL} {name}"))
+            write = write_jpeg if image_format == "jpg" else write_png
+            write(os.path.join(path, "images", image), rgb,
+                  exif_tiff(lat, lon, alt, f"2024:05:01 12:{i // 60:02d}:"
+                                           f"{i % 60:02d}",
+                            model=MODEL if name is None
+                            else f"{MODEL} {name}"))
             truth["centres"][image] = centre
     if overrides:
         with open(os.path.join(path, "camera_models_overrides.json"),

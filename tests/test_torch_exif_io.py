@@ -12,8 +12,9 @@ JAX package on the CPU.
 - `camera_from_exif_metadata` gives the same camera, and the `sensors`
   lookups give tests/test_sensors.py's answers.
 - With neither cv2 nor PIL importable, `extract_metadata` and
-  `detect_features` run on PNG and PGM images, and a JPEG raises an error
-  naming the missing packages.
+  `detect_features` run on PNG, PGM and JPEG images (the port's own JPEG
+  codec), and an arithmetic-coded JPEG, which the codec does not decode,
+  raises an error naming the missing packages.
 """
 
 import os
@@ -300,10 +301,11 @@ def _hide_image_libraries(monkeypatch):
 
 
 def test_no_cv2_no_pil_png_pgm_chain_and_jpeg_error(tmp_path, monkeypatch):
-    """extract_metadata and detect_features on PNG and PGM images with
-    neither cv2 nor PIL importable; a JPEG then passes extract_metadata,
-    and its decode, alone and through detect_features, raises an error
-    naming both packages."""
+    """extract_metadata and detect_features on PNG, PGM and JPEG images
+    with neither cv2 nor PIL importable; an arithmetic-coded JPEG (a
+    variant the port's codec does not decode) then passes
+    extract_metadata, and its decode, alone and through detect_features,
+    raises an error naming both packages."""
     path = tmp_path / "data"
     os.makedirs(path / "images")
     rng = np.random.default_rng(2)
@@ -311,9 +313,14 @@ def test_no_cv2_no_pil_png_pgm_chain_and_jpeg_error(tmp_path, monkeypatch):
     Image.fromarray(np.stack([grey] * 3, -1)).save(
         path / "images" / "a.png", exif=_exif_bytes("<"))
     Image.fromarray(grey).save(path / "images" / "b.pgm")
-    jpeg = tmp_path / "c.jpg"
-    Image.fromarray(np.stack([grey] * 3, -1)).save(jpeg,
+    Image.fromarray(np.stack([grey] * 3, -1)).save(
+        path / "images" / "c.jpg", exif=_exif_bytes("<"))
+    arith = tmp_path / "d.jpg"
+    Image.fromarray(np.stack([grey] * 3, -1)).save(arith,
                                                    exif=_exif_bytes("<"))
+    data = bytearray(arith.read_bytes())
+    data[data.index(b"\xff\xc0") + 1] = 0xC9  # SOF9: arithmetic coding
+    arith.write_bytes(bytes(data))
     with open(path / "config.yaml", "w") as f:
         f.write("feature_min_frames: 50\nfeature_process_size: 128\n")
     _hide_image_libraries(monkeypatch)
@@ -325,20 +332,21 @@ def test_no_cv2_no_pil_png_pgm_chain_and_jpeg_error(tmp_path, monkeypatch):
         "detect_features", str(path), "--device", "cpu"])
     data = DataSet(str(path))
     assert data.load_exif("a.png")["make"] == "Canon"
+    assert data.load_exif("c.jpg")["make"] == "Canon"
     assert data.load_exif("b.pgm")["width"] == 128
-    for im in ("a.png", "b.pgm"):
+    for im in ("a.png", "b.pgm", "c.jpg"):
         assert len(data.load_features(im).points) > 0
         assert report["images"][im]["features"] > 0
-    # A JPEG (written before the libraries were hidden): its EXIF and size
-    # come from the port's own parsers, its pixels need cv2 or PIL, so
-    # detect_features fails naming both.
-    shutil.move(jpeg, path / "images" / "c.jpg")
+    # The arithmetic-coded JPEG (written before the libraries were hidden):
+    # its EXIF and size come from the port's own parsers, its pixels need
+    # cv2 or PIL, so detect_features fails naming both.
+    shutil.move(arith, path / "images" / "d.jpg")
     with pytest.raises(ImportError, match="JPG.*cv2.*PIL"):
-        io.imread(str(path / "images" / "c.jpg"))
+        io.imread(str(path / "images" / "d.jpg"))
     command_runner(opensfm_commands,
                    argv=["extract_metadata", str(path), "--device", "cpu"])
-    assert DataSet(str(path)).load_exif("c.jpg")["make"] == "Canon"
+    assert DataSet(str(path)).load_exif("d.jpg")["make"] == "Canon"
     with pytest.raises(ImportError, match="JPG.*cv2.*PIL"):
         command_runner(opensfm_commands, argv=[
             "detect_features", str(path), "--device", "cpu"])
-    assert not DataSet(str(path)).features_exist("c.jpg")
+    assert not DataSet(str(path)).features_exist("d.jpg")

@@ -4,7 +4,9 @@ resizes, against OpenCV on the CPU.
 - `io.encode_png` (grey, grey+alpha, RGB, RGBA) reads back bit for bit
   through the port's `decode_png`/`imread` and through `cv2.imread`.
 - `UndistortedDataSet`'s image, mask and segmentation round trips, with
-  neither cv2 nor PIL importable; a JPEG write then raises naming cv2.
+  neither cv2 nor PIL importable, PNG and JPEG (the port's own codec; the
+  JPEG read back within its quality-95 loss); a TIFF write then raises
+  naming cv2.
 - `ops.image.remap_linear` against `cv2.remap(..., INTER_LINEAR)` (the
   installed OpenCV, 5.0: a float32 bilinear with fused multiply-adds) on a
   random 96 x 64 RGB image through a distorting map whose taps cross the
@@ -92,8 +94,16 @@ def test_undistorted_dataset_io_without_cv2_or_pil(tmp_path, monkeypatch):
     assert udata.load_undistorted_mask("other.png") is None
     with pytest.raises(IOError):
         udata.load_undistorted_image("other.png")
+    yy, xx = np.mgrid[0:30, 0:41]
+    smooth = np.stack([xx * 5, yy * 8, (xx + yy) * 3], -1).astype(np.uint8)
+    udata.save_undistorted_image("im.jpg", smooth)
+    back = udata.load_undistorted_image("im.jpg")
+    assert back.shape == smooth.shape
+    err = back.astype(float) - smooth
+    assert 10 * np.log10(255.0**2 / np.mean(err**2)) > 35.0  # PSNR, dB
+    assert udata.undistorted_image_size("im.jpg") == (30, 41)
     with pytest.raises(ImportError, match="cv2"):
-        udata.save_undistorted_image("im.jpg", rgb)
+        udata.save_undistorted_image("im.tif", rgb)
 
 
 def _distorting_map(rng, w, h, src_w, src_h):
