@@ -2,9 +2,11 @@
 `opensfm/commands/__init__.py:33-57`).  The port registers the stages from
 images to a reconstruction: `extract_metadata`, `detect_features`,
 `match_features`, `create_tracks`, `reconstruct`, `reconstruct_from_prior`,
-`extend_reconstruction`, `bundle` and `create_rig`, and the dense stages
+`extend_reconstruction`, `bundle` and `create_rig`, the dense stages
 `mesh`, `undistort` and `compute_depthmaps`, with `run_all` running the
-eight stages of the reference's `bin/opensfm_run_all`."""
+eight stages of the reference's `bin/opensfm_run_all`, and the exports
+`export_ply`, `export_colmap`, `export_bundler`, `export_visualsfm`,
+`export_geocoords`, `export_pmvs` and `export_openmvs`."""
 
 from opensfm_tpu_torch.commands.command import CommandBase  # noqa: F401
 from opensfm_tpu_torch.commands.command_runner import command_runner  # noqa: F401
@@ -17,6 +19,13 @@ def opensfm_commands():
         create_rig,
         create_tracks,
         detect_features,
+        export_bundler,
+        export_colmap,
+        export_geocoords,
+        export_openmvs,
+        export_ply,
+        export_pmvs,
+        export_visualsfm,
         extend_reconstruction,
         extract_metadata,
         match_features,
@@ -33,4 +42,7 @@ def opensfm_commands():
             reconstruct_from_prior.Command(), bundle.Command(),
             extend_reconstruction.Command(), mesh.Command(),
             undistort.Command(), compute_depthmaps.Command(),
-            create_rig.Command()]
+            export_ply.Command(), export_colmap.Command(),
+            export_bundler.Command(), export_visualsfm.Command(),
+            export_geocoords.Command(), export_pmvs.Command(),
+            export_openmvs.Command(), create_rig.Command()]

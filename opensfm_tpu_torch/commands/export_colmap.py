@@ -1,0 +1,18 @@
+"""export_colmap command shim (reference commands/export_colmap.py)."""
+
+from opensfm_tpu_torch.actions import export_colmap
+from opensfm_tpu_torch.commands.command import CommandBase
+
+
+class Command(CommandBase):
+    name = "export_colmap"
+    help = "export colmap"
+
+    def run_impl(self, dataset, args) -> None:
+        export_colmap.run_dataset(dataset, device=args.device)
+
+    def add_arguments(self, parser) -> None:
+        parser.add_argument(
+            "--device", default=None,
+            help="torch device to resolve (default: cuda; 'cpu' for the CPU)",
+        )

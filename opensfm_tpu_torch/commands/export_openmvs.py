@@ -1,0 +1,18 @@
+"""export_openmvs command shim (reference commands/export_openmvs.py)."""
+
+from opensfm_tpu_torch.actions import export_openmvs
+from opensfm_tpu_torch.commands.command import CommandBase
+
+
+class Command(CommandBase):
+    name = "export_openmvs"
+    help = "export openmvs"
+
+    def run_impl(self, dataset, args) -> None:
+        export_openmvs.run_dataset(dataset, device=args.device)
+
+    def add_arguments(self, parser) -> None:
+        parser.add_argument(
+            "--device", default=None,
+            help="torch device to resolve (default: cuda; 'cpu' for the CPU)",
+        )

@@ -1,0 +1,18 @@
+"""export_ply command shim (reference commands/export_ply.py)."""
+
+from opensfm_tpu_torch.actions import export_ply
+from opensfm_tpu_torch.commands.command import CommandBase
+
+
+class Command(CommandBase):
+    name = "export_ply"
+    help = "export ply"
+
+    def run_impl(self, dataset, args) -> None:
+        export_ply.run_dataset(dataset, device=args.device)
+
+    def add_arguments(self, parser) -> None:
+        parser.add_argument(
+            "--device", default=None,
+            help="torch device to resolve (default: cuda; 'cpu' for the CPU)",
+        )

@@ -79,6 +79,15 @@ class FeatureLoader:
             features.semantic,
         )
 
+    def load_bearings(
+        self, data, image: str, masked: bool, camera
+    ) -> Optional[np.ndarray]:
+        """Unit bearings of the (masked) features (feature_loading.py:88)."""
+        features_data = self.load_all_data(data, image, masked)
+        if features_data is None:
+            return None
+        return camera.bearings_many(features_data.points[:, :2])
+
     def load_features_index(
         self, data, image: str, masked: bool,
         segmentation_in_descriptor: bool = False,

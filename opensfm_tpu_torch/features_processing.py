@@ -16,7 +16,7 @@ from typing import Any, Dict, List
 
 import numpy as np
 
-from opensfm_tpu_torch import features, resolve_device
+from opensfm_tpu_torch import bow, features, resolve_device
 from opensfm_tpu_torch.features import SemanticData
 from opensfm_tpu_torch.io import UnsupportedImage
 
@@ -28,7 +28,8 @@ def run_features_processing(data, images: List[str], force: bool,
     """Extract features for all images (features_processing.py:48-109) on
     `device` (CUDA unless told otherwise).  Returns a report: per image,
     the seconds spent waiting for its decode and detecting it, and its
-    feature count."""
+    feature count; where the WORDS matcher or BoW pair selection needs
+    words, the seconds of each image's word assignment ("words")."""
     device = resolve_device(device)
     need_words = (
         data.config.get("matcher_type", "").upper() == "WORDS"
@@ -41,7 +42,7 @@ def run_features_processing(data, images: List[str], force: bool,
     if not to_process:
         logger.info("All features already extracted.")
         if need_words:
-            _assign_words(data, images, force)
+            report["words"] = _assign_words(data, images, force, device)
         return report
 
     read_queue: "queue.Queue" = queue.Queue(maxsize=4)
@@ -86,17 +87,36 @@ def run_features_processing(data, images: List[str], force: bool,
     thread.join()
 
     if need_words:
-        _assign_words(data, images, force)
+        report["words"] = _assign_words(data, images, force, device)
     return report
 
 
-def _assign_words(data, images: List[str], force: bool) -> None:
-    """Word assignment for the WORDS matcher or BoW pair selection
-    (features_processing.py:269-336): needs the BoW vocabulary, which the
-    port does not have yet."""
-    raise NotImplementedError(
-        "assigning BoW words (matcher_type WORDS or matching_bow_neighbors "
-        "> 0) is not ported yet (ROADMAP A7)")
+def _assign_words(data, images: List[str], force: bool,
+                  device=None) -> Dict[str, float]:
+    """Assign each image's descriptors to their `bow_words_to_match`
+    closest vocabulary words (features_processing.py:269-336): a second
+    pass once every image has features, one image's descriptors a search
+    on `device`, against the vocabulary of `bow.load_vocabulary`.  Returns
+    the seconds spent on each image (its load, search and save)."""
+    to_assign = [im for im in images if force or not data.words_exist(im)]
+    seconds: Dict[str, float] = {}
+    if not to_assign:
+        return seconds
+    bows = bow.load_vocabulary(data, device=device)
+    n_closest = data.config.get("bow_words_to_match", 50)
+    for image in to_assign:
+        t0 = time.perf_counter()
+        fd = data.load_features(image)
+        if fd is None or fd.descriptors is None:
+            continue
+        words = bows.map_to_words(
+            fd.descriptors, n_closest,
+            data.config.get("bow_matcher_type", "FLANN"), device=device,
+        )
+        data.save_words(image, words)
+        seconds[image] = time.perf_counter() - t0
+        logger.info("Assigned %d-closest words for %s", n_closest, image)
+    return seconds
 
 
 def detect(data, image: str, image_array: np.ndarray, device=None) -> int:

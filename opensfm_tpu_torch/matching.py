@@ -1,7 +1,8 @@
 """Pairwise descriptor matching + robust geometric filtering.
 
 Port of `opensfm_tpu.matching` (OpenSfM matching.py: match_images:28,
-match_images_with_pairs:63, match_descriptors:219, _match_descriptors_impl:341,
+match_images_with_pairs:63, match_descriptors:219,
+_match_descriptors_guided_impl:260, _match_descriptors_impl:341,
 match_robust:463, match:563-634, match_words:637, robust_match:906,
 robust_match_fundamental:780, robust_match_calibrated:871,
 apply_adhoc_filters:939, unfilter_matches:932).
@@ -10,10 +11,12 @@ Every matcher type runs the exact top-2 search of `ops/matching` on
 `device` (the CUDA kernel on the card):
   FLANN / BRUTEFORCE -> exact search over all candidates,
   WORDS              -> exact search restricted by the word-compatibility
-                        mask (the semantics of pyfeatures match_using_words).
+                        mask (the semantics of pyfeatures match_using_words),
+  guided             -> exact mutual search restricted by the epipolar-angle
+                        mask from the pair's relative pose, built on
+                        `device` in float64.
 Batched RANSAC on `device` filters the matches.  `device=None` is cuda
-(`resolve_device`) for the search and RANSAC alike.  Guided matching (the
-epipolar-masked search from a relative pose) is not ported yet.
+(`resolve_device`) for the search and RANSAC alike.
 """
 
 from __future__ import annotations
@@ -23,8 +26,13 @@ from timeit import default_timer as timer
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-from opensfm_tpu_torch import feature_loader, pairs_selection, robust
+from opensfm_tpu_torch import (feature_loader, pairs_selection, resolve_device,
+                               robust)
+from opensfm_tpu_torch.geometry.triangulation import (
+    epipolar_angle_two_bearings_many,
+)
 from opensfm_tpu_torch.ops.matching import (
     match_brute_force,
     match_brute_force_symmetric,
@@ -47,7 +55,7 @@ def match_images(
     all_images = list(set(ref_images + cand_images))
     exifs = {im: data.load_exif(im) for im in all_images}
     pairs, preport = pairs_selection.match_candidates_from_metadata(
-        ref_images, cand_images, exifs, data, config_override
+        ref_images, cand_images, exifs, data, config_override, device=device
     )
     logger.info(
         "Matching %d image pairs (%d ref images)", len(pairs), len(ref_images)
@@ -62,8 +70,10 @@ def match_images_with_pairs(
     exifs: Dict[str, Any], pairs: List[Tuple[str, str]],
     poses: Optional[Dict[Tuple[str, str], Any]] = None, device=None,
 ) -> Dict[Tuple[str, str], Any]:
-    """Match the given pairs (matching.py:63-130).  `poses` (guided
-    matching) is not ported yet."""
+    """Match the given pairs (matching.py:63-130); `poses` maps a pair to
+    the relative pose of its second camera from its first, which restricts
+    that pair's search to epipolar-consistent candidates (guided
+    matching)."""
     config = dict(data.config)
     config.update(config_override)
     cameras = data.load_camera_models()
@@ -162,6 +172,66 @@ def _match_descriptors_impl(
     )
 
 
+def _match_descriptors_guided_impl(
+    im1: str, im2: str, camera1, camera2, relative_pose, data,
+    config: Dict[str, Any], device=None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, str]:
+    """Guided matching: mutual exact search restricted to the candidates
+    within `guided_matching_threshold` of the epipolar geometry of the
+    pair's relative pose (matching.py:260-338)."""
+    dummy = np.zeros((0, 2))
+    matcher_type = "BRUTEFORCE"
+    loaded = _load_pair_descriptors(data, im1, im2, config)
+    if loaded is None:
+        return dummy, dummy, np.zeros((0, 2), dtype=int), matcher_type
+    features1, d1, features2, d2 = loaded
+
+    b1 = feature_loader.instance.load_bearings(
+        data, im1, masked=True, camera=camera1
+    )
+    b2 = feature_loader.instance.load_bearings(
+        data, im2, masked=True, camera=camera2
+    )
+    if b1 is None or b2 is None:
+        return dummy, dummy, np.zeros((0, 2), dtype=int), matcher_type
+
+    epipolar_mask = compute_inliers_bearing_epipolar(
+        b1, b2, relative_pose, config.get("guided_matching_threshold", 0.006),
+        device=device,
+    )
+    ratio = config.get("lowes_ratio", 0.8)
+    matches = match_brute_force_symmetric(
+        d1, d2, ratio, symmetric=True, mask12=epipolar_mask, device=device
+    )
+
+    if config.get("matching_use_filters", False):
+        matches = apply_adhoc_filters(
+            data, matches, im1, camera1, features1.points,
+            im2, camera2, features2.points,
+        )
+    return (
+        features1.points, features2.points,
+        np.asarray(matches, dtype=int).reshape(-1, 2), matcher_type,
+    )
+
+
+def compute_inliers_bearing_epipolar(
+    b1: np.ndarray, b2: np.ndarray, pose, threshold: float, device=None,
+) -> torch.Tensor:
+    """[N1, N2] bool mask on `device` (CUDA unless told otherwise) of the
+    bearing pairs whose symmetric epipolar angle under `pose` (cam1 to cam2,
+    relative) is below `threshold` (matching.py:847-869), in float64."""
+    dev = resolve_device(device)
+
+    def f64(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+
+    angles = epipolar_angle_two_bearings_many(
+        f64(b1), f64(b2), f64(pose.get_rotation_matrix()),
+        f64(pose.translation))
+    return angles < threshold
+
+
 def match_words(
     d1: np.ndarray, words1: np.ndarray, d2: np.ndarray, words2: np.ndarray,
     config: Dict[str, Any], device=None,
@@ -245,10 +315,14 @@ def match(
     time_start = timer()
 
     if guided_matching_pose is not None:
-        raise NotImplementedError("guided matching is not ported yet")
-    p1, p2, matches, matcher_type = _match_descriptors_impl(
-        im1, im2, camera1, camera2, data, config, device=device
-    )
+        p1, p2, matches, matcher_type = _match_descriptors_guided_impl(
+            im1, im2, camera1, camera2, guided_matching_pose, data, config,
+            device=device,
+        )
+    else:
+        p1, p2, matches, matcher_type = _match_descriptors_impl(
+            im1, im2, camera1, camera2, data, config, device=device
+        )
     time_2d = timer()
 
     min_matches = config.get("robust_matching_min_match", 20)

@@ -31,7 +31,8 @@ and launches the kernel when they lie on a CUDA device; it never falls back
 from one to the other.  `top2_sqdist.launches` counts the calls that
 launched the kernel, and `top2_sqdist.launches_by_input` the same calls by
 their descriptors: "uint8" (the INT8 route), "uint8_wide" (uint8 wider
-than U8_MAX_D, the FP32 route) and "float" (the FP32 route).
+than U8_MAX_D, the FP32 route) and "float" (the FP32 route);
+`top2_sqdist.launches_masked` counts those of them that took a mask.
 """
 
 from __future__ import annotations
@@ -186,8 +187,11 @@ def top2_sqdist(d1: torch.Tensor, d2: torch.Tensor, n2: int,
     kind = ("uint8" if route == "u8" else "uint8_wide" if
             uint8_in else "float")
     top2_sqdist.launches_by_input[kind] += 1
+    if mask is not None:
+        top2_sqdist.launches_masked += 1
     return idx, dist
 
 
 top2_sqdist.launches = 0
 top2_sqdist.launches_by_input = {"uint8": 0, "uint8_wide": 0, "float": 0}
+top2_sqdist.launches_masked = 0

@@ -1,11 +1,12 @@
-"""Candidate pair prefiltering: GPS distance, Delaunay graph, time, order.
+"""Candidate pair prefiltering: GPS distance, Delaunay graph, time, order,
+BoW and VLAD similarity.
 
 Port of `opensfm_tpu.pairs_selection` (OpenSfM pairs_selection.py:
 match_candidates_from_metadata:581-687, by_distance:154, by_graph:220,
-by_time:526, by_order:562, ordered_pairs:798); host code in numpy and scipy.
-The BoW and VLAD strategies need a vocabulary the port does not have yet:
-they raise NotImplementedError when `matching_bow_neighbors` or
-`matching_vlad_neighbors` is above 0 (both are 0 by default).
+by_time:526, by_order:562, with_bow:285, with_vlad:351,
+preempt_candidates:433, ordered_pairs:798): host code in numpy and scipy,
+but for the word assignment and VLAD aggregation of `bow` and `vlad`,
+which run on the device.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from collections import defaultdict
 from typing import Any, Dict, List, Set, Tuple
 
 import numpy as np
+
+from opensfm_tpu_torch import bow, feature_loader, vlad
 
 logger = logging.getLogger(__name__)
 
@@ -280,36 +283,112 @@ def match_candidates_by_order(
     return pairs
 
 
+def preempt_candidates(
+    images_ref: List[str], images_cand: List[str],
+    exifs: Dict[str, Any], reference,
+    max_gps_neighbors: int, max_gps_distance: float,
+):
+    """GPS-preempted candidate set per ref image, and every image whose
+    histogram is needed (pairs_selection.py:433)."""
+    preempted_cand = {im: images_cand for im in images_ref}
+    if max_gps_distance > 0 or max_gps_neighbors > 0:
+        gps_pairs = match_candidates_by_distance(
+            images_ref, images_cand, exifs, reference,
+            max_gps_neighbors, max_gps_distance,
+        )
+        preempted_cand = defaultdict(list)
+        for p in gps_pairs:
+            if p[0] in images_ref:
+                preempted_cand[p[0]].append(p[1])
+            if p[1] in images_ref:
+                preempted_cand[p[1]].append(p[0])
+    need_load = set(images_ref)
+    for cands in preempted_cand.values():
+        need_load.update(cands)
+    return preempted_cand, need_load
+
+
+def _closest_by_histogram(
+    preempted_cand: Dict[str, List[str]],
+    histograms: Dict[str, np.ndarray],
+    max_neighbors: int,
+    distance_fn,
+) -> Set[Tuple[str, str]]:
+    """Each ref image paired with its `max_neighbors` candidates closest by
+    histogram distance, ties by name."""
+    pairs = set()
+    for im, cands in preempted_cand.items():
+        if im not in histograms:
+            continue
+        scored = []
+        for other in cands:
+            if other == im or other not in histograms:
+                continue
+            scored.append((distance_fn(histograms[im], histograms[other]), other))
+        scored.sort()
+        for _, other in scored[:max_neighbors]:
+            pairs.add(sorted_pair(im, other))
+    return pairs
+
+
 def match_candidates_with_bow(
     data, images_ref, images_cand, exifs, reference,
-    max_neighbors, gps_distance, gps_neighbors, other_cameras,
+    max_neighbors, gps_distance, gps_neighbors, other_cameras, device=None,
 ) -> Set[Tuple[str, str]]:
-    """BoW tf-idf similarity neighbors (pairs_selection.py:285-348)."""
+    """BoW tf-idf similarity neighbours (pairs_selection.py:285-348): each
+    image's nearest words on `device`, L1 distances between histograms on
+    the host."""
     if max_neighbors <= 0:
         return set()
-    raise NotImplementedError(
-        "matching_bow_neighbors > 0: BoW pair selection is not ported yet"
+    preempted_cand, need_load = preempt_candidates(
+        images_ref, images_cand, exifs, reference, gps_neighbors, gps_distance
+    )
+    bag = bow.load_vocabulary(data, device=device)
+    histograms = {}
+    for im in need_load:
+        fd = feature_loader.instance.load_all_data(data, im, masked=True)
+        if fd is None or fd.descriptors is None:
+            continue
+        words = bag.map_to_words(fd.descriptors, 1, device=device)
+        histograms[im] = bag.histogram(words)
+    return _closest_by_histogram(
+        preempted_cand, histograms, max_neighbors,
+        lambda a, b: float(np.abs(a - b).sum()),
     )
 
 
 def match_candidates_with_vlad(
     data, images_ref, images_cand, exifs, reference,
     max_neighbors, gps_distance, gps_neighbors, other_cameras, histograms,
+    device=None,
 ) -> Set[Tuple[str, str]]:
-    """VLAD similarity neighbors (pairs_selection.py:351-430)."""
+    """VLAD similarity neighbours (pairs_selection.py:351-430): each
+    image's VLAD on `device`, L2 distances on the host."""
     if max_neighbors <= 0:
         return set()
-    raise NotImplementedError(
-        "matching_vlad_neighbors > 0: VLAD pair selection is not ported yet"
+    preempted_cand, need_load = preempt_candidates(
+        images_ref, images_cand, exifs, reference, gps_neighbors, gps_distance
+    )
+    hists = dict(histograms)
+    for im in need_load:
+        if im not in hists:
+            h = vlad.instance.vlad_histogram(data, im, device=device)
+            if h is not None:
+                hists[im] = h
+    return _closest_by_histogram(
+        preempted_cand, hists, max_neighbors,
+        lambda a, b: float(np.linalg.norm(a - b)),
     )
 
 
 def match_candidates_from_metadata(
     images_ref: List[str], images_cand: List[str],
     exifs: Dict[str, Any], data, config_override: Dict[str, Any],
+    device=None,
 ) -> Tuple[List[Tuple[str, str]], Dict[str, Any]]:
     """Union of all enabled pair-selection strategies
-    (pairs_selection.py:581-687)."""
+    (pairs_selection.py:581-687); BoW and VLAD run their device steps on
+    `device` (CUDA unless told otherwise)."""
     config = dict(data.config)
     config.update(config_override)
 
@@ -359,13 +438,13 @@ def match_candidates_from_metadata(
             data, images_ref, images_cand, exifs, reference,
             bow_neighbors, config["matching_bow_gps_distance"],
             config["matching_bow_gps_neighbors"],
-            config["matching_bow_other_cameras"],
+            config["matching_bow_other_cameras"], device=device,
         )
         v = match_candidates_with_vlad(
             data, images_ref, images_cand, exifs, reference,
             vlad_neighbors, config["matching_vlad_gps_distance"],
             config["matching_vlad_gps_neighbors"],
-            config["matching_vlad_other_cameras"], {},
+            config["matching_vlad_other_cameras"], {}, device=device,
         )
         pairs = d | g | t | o | set(b) | set(v)
 

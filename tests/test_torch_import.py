@@ -30,7 +30,20 @@ matching_path = {
         "matching", "actions.match_features", "commands.match_features")}
 matching_path |= {"opensfm_tpu_torch.ops.kernels.assembly_variants",
                   "opensfm_tpu_torch.tools.profile_kernel_variants"}
+matching_path |= {"opensfm_tpu_torch." + m for m in (
+    "ops.kmeans", "bow", "vlad", "io_openmvs")}
+matching_path |= {f"opensfm_tpu_torch.{kind}.export_{fmt}"
+                  for kind in ("actions", "commands")
+                  for fmt in ("ply", "colmap", "bundler", "visualsfm", "pmvs",
+                              "geocoords", "openmvs")}
 missing = sorted(matching_path - set(names))
+# The vocabularies are the port's own copies, under its own directory.
+import os
+from opensfm_tpu_torch import bow
+vocab = os.path.realpath(bow.PACKAGE_VOCAB_DIR)
+if os.path.dirname(os.path.dirname(vocab)) != os.path.realpath(
+        opensfm_tpu_torch.__path__[0]):
+    missing.append(vocab)
 # Importing builds nothing: no nvcc runs and no library is loaded.
 from opensfm_tpu_torch.ops.kernels import _build
 built = sorted(_build.BUILD_LOG) + sorted(_build._loaded)

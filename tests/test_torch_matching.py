@@ -212,14 +212,36 @@ def test_pair_selection_matches_reference(name):
     assert got_report == want_report
 
 
-def test_bow_and_vlad_pair_selection_raise():
-    exifs, config = _fixture("exhaustive")
-    images = sorted(exifs)
+def test_bow_and_vlad_pair_selection_raise(tmp_path):
+    """BoW and VLAD pair selection no longer raise NotImplementedError: with
+    either neighbour count above 0 the port selects the JAX package's pairs
+    (tests/test_torch_pairs_vocab.py holds more cases)."""
+    import synthetic_bundle as sb
+    from opensfm_tpu import vlad as ref_vlad
+    from opensfm_tpu.dataset import DataSet as RefDataSet
+    from opensfm_tpu_torch import vlad
+    from opensfm_tpu_torch.dataset import DataSet
+
+    # Both VLAD caches hold histograms by image name: start them empty.
+    ref_vlad.instance.clear_cache()
+    vlad.instance.clear_cache()
+    path = str(tmp_path / "data")
+    sb.write_matching_dataset(path, n_shots=4, n_points=200, track_window=2,
+                              features_per_image=150, seed=3)
+    data, ref_data = DataSet(path), RefDataSet(path)
+    images = data.images()
+    exifs = {im: data.load_exif(im) for im in images}
     for key in ("matching_bow_neighbors", "matching_vlad_neighbors"):
-        data = _FakeData("port", exifs, **dict(config, **{key: 2}))
-        with pytest.raises(NotImplementedError):
-            pairs_selection.match_candidates_from_metadata(
-                images, images, exifs, data, {})
+        override = {"matching_gps_distance": 0, key: 1}
+        want, want_report = ref_pairs.match_candidates_from_metadata(
+            images, images, exifs, ref_data, override)
+        got, got_report = pairs_selection.match_candidates_from_metadata(
+            images, images, exifs, data, override, device=CPU)
+        assert {tuple(sorted(p)) for p in got} == \
+            {tuple(sorted(p)) for p in want}
+        assert got_report == want_report
+    ref_vlad.instance.clear_cache()
+    vlad.instance.clear_cache()
 
 
 # ---------------------------------------------------------------------------
