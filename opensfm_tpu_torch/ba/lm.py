@@ -25,8 +25,11 @@ segment's tangent directions.  The kernels run when the tensors lie on a
 CUDA device (f32 or f64), their plain PyTorch versions when they lie on the
 CPU; a kernel that fails raises, it never gives way to the generic route.
 
-Not ported, and raising NotImplementedError: cluster scale variables,
-pose-graph constraint families and covariances.
+Cluster-SfM scale variables and the pose-graph constraint families
+(relative motion and rotation, common position, linear motion, heatmap
+position priors, the gauge fix) fold into the reduced system after its
+assembly on every route (`_fold_graph_rows`); `compute_covariances` gives
+the rig instances' marginal 6 x 6 covariances (`_instance_covariances`).
 """
 
 from __future__ import annotations
@@ -37,7 +40,6 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
-import torch.autograd.forward_ad as fwAD
 
 from opensfm_tpu_torch import context, resolve_device
 from opensfm_tpu_torch.geometry import cameras as cam_lib
@@ -154,10 +156,13 @@ class BAProblem:
     # = plain quadratic.
     point_prior_loss: Optional[np.ndarray] = None  # [NP]
 
-    # Cluster-SfM scale variables and pose-graph constraint families (not
-    # ported: must be absent or empty).
+    # Cluster-SfM scale variables: one per (reconstruction, instance), or
+    # one per reconstruction under scale sharing; instances reference them
+    # through rm_si / rm_sj.
     scales: Optional[np.ndarray] = None
     opt_scales: Optional[np.ndarray] = None
+    # Relative motions (7 rows: rotation log, scaled translation, scale
+    # ratio; Cauchy(loss_threshold * robust_multiplier)).
     rm_i: Optional[np.ndarray] = None
     rm_j: Optional[np.ndarray] = None
     rm_si: Optional[np.ndarray] = None
@@ -168,6 +173,7 @@ class BAProblem:
     rm_inv_sd: Optional[np.ndarray] = None
     rm_obs_scale: Optional[np.ndarray] = None
     rm_loss_c: Optional[np.ndarray] = None
+    # Relative rotations (3 rows between two shots, Cauchy(threshold)).
     rr_i: Optional[np.ndarray] = None
     rr_j: Optional[np.ndarray] = None
     rr_ri: Optional[np.ndarray] = None
@@ -175,12 +181,14 @@ class BAProblem:
     rr_rvec: Optional[np.ndarray] = None
     rr_inv_sd: Optional[np.ndarray] = None
     rr_loss_c: Optional[np.ndarray] = None
+    # Common positions (3 rows, xy clamped by a margin, Tukey(1)).
     cp_i: Optional[np.ndarray] = None
     cp_j: Optional[np.ndarray] = None
     cp_ri: Optional[np.ndarray] = None
     cp_rj: Optional[np.ndarray] = None
     cp_margin: Optional[np.ndarray] = None
     cp_inv_sd: Optional[np.ndarray] = None
+    # Linear motions (6 rows over three shots, Cauchy(1)).
     lin_i0: Optional[np.ndarray] = None
     lin_i1: Optional[np.ndarray] = None
     lin_i2: Optional[np.ndarray] = None
@@ -190,6 +198,7 @@ class BAProblem:
     lin_alpha: Optional[np.ndarray] = None
     lin_pos_inv_sd: Optional[np.ndarray] = None
     lin_rot_inv_sd: Optional[np.ndarray] = None
+    # Heatmap position priors (1 row, a bicubic lookup, no loss).
     hm_inst: Optional[np.ndarray] = None
     hm_rigcam: Optional[np.ndarray] = None
     hm_map: Optional[np.ndarray] = None
@@ -197,6 +206,7 @@ class BAProblem:
     hm_inv_sd: Optional[np.ndarray] = None
     heatmaps: Optional[np.ndarray] = None
     hm_res: Optional[np.ndarray] = None
+    # Gauge fix (1 row, log(|o_i - o_j| / norm), no loss).
     gauge_i: Optional[np.ndarray] = None
     gauge_j: Optional[np.ndarray] = None
     gauge_norm: Optional[np.ndarray] = None
@@ -392,22 +402,27 @@ def _residual_data(state, data, loss, loss_threshold, ptype="perspective",
     return r * sw, Jc * sw[..., None], Jp * sw[..., None], cost
 
 
-def _row_jacobian(fn, args, argnum):
-    """J[K, M, D] of a row-batched residual fn(*args) -> [K, M] with respect
-    to args[argnum] [K, D]: the rows are independent, so one forward-mode
-    push per tangent direction gives column d of every row's Jacobian (the
-    reference's jacfwd)."""
-    x = args[argnum]
-    cols = []
-    with fwAD.dual_level():
-        for k in range(x.shape[-1]):
-            tangent = torch.zeros_like(x)
-            tangent[:, k] = 1.0
-            dual = list(args)
-            dual[argnum] = fwAD.make_dual(x, tangent)
-            primal, col = fwAD.unpack_dual(fn(*dual))
-            cols.append(torch.zeros_like(primal) if col is None else col)
-    return torch.stack(cols, dim=-1)
+def _push_rows(fn, diff, const):
+    """(r [K, M], [J_a [K, M, d_a] for each of `diff`]) of the row-batched
+    fn(*diff, *const): every tangent direction of the differentiated
+    arguments ([K, d_a], or [K] as d_a = 1) pushed at once by
+    `torch.func.vmap` over `torch.func.jvp`, the reference's jacfwd in one
+    launch chain."""
+    widths = [x.shape[1] if x.dim() > 1 else 1 for x in diff]
+    ref = diff[0]
+    basis = torch.eye(sum(widths), dtype=ref.dtype, device=ref.device)
+    starts = np.cumsum([0] + widths[:-1]).tolist()
+
+    def push(e):
+        tangents = tuple(
+            (e[o:o + w] if x.dim() > 1 else e[o]).expand_as(x)
+            for x, o, w in zip(diff, starts, widths))
+        return torch.func.jvp(lambda *a: fn(*a, *const), tuple(diff),
+                              tangents)
+
+    r, J = torch.func.vmap(push)(basis)  # [D, K, M]
+    J = J.permute(1, 2, 0)
+    return r[0], [J[..., o:o + w] for o, w in zip(starts, widths)]
 
 
 def _prior_residuals(state, data, with_jac=True):
@@ -536,26 +551,293 @@ def _shot_prior_residuals(state, data, raw=False, rig_jac=False):
     cauchy_w = LOSSES["CauchyLoss"][1]
     rows = []
     if d["up_vec"].shape[0] > 0:
-        rows.append((_up_res, (inst[d["up_inst"]], rigcam[d["up_rigcam"]],
-                               d["up_vec"], d["up_inv_sd"][:, None]),
+        rows.append((_up_res, (inst[d["up_inst"]], rigcam[d["up_rigcam"]]),
+                     (d["up_vec"], d["up_inv_sd"][:, None]),
                      d["up_inst"], d["up_rigcam"]))
     if d["ang_value"].shape[0] > 0:
-        rows.append((_ang_res, (inst[d["ang_inst"]], rigcam[d["ang_rigcam"]],
-                                d["ang_kind"], d["ang_value"],
-                                d["ang_inv_sd"]),
+        rows.append((_ang_res, (inst[d["ang_inst"]], rigcam[d["ang_rigcam"]]),
+                     (d["ang_kind"], d["ang_value"], d["ang_inv_sd"]),
                      d["ang_inst"], d["ang_rigcam"]))
-    for fn, args, idx_i, idx_r in rows:
-        r = fn(*args)
+    for fn, diff, const, idx_i, idx_r in rows:
         if raw:
-            out.append(r)
+            out.append(fn(*diff, *const))
             continue
-        Ji = _row_jacobian(fn, args, 0)
-        Jr = _row_jacobian(fn, args, 1) if rig_jac else None
+        r, (Ji, Jr) = _push_rows(fn, diff, const)
+        Jr = Jr if rig_jac else None
         s = torch.sum(r * r, dim=-1, keepdim=True)
         sw = torch.sqrt(torch.clamp_min(cauchy_w(s), 1e-12))
         out.append((r * sw, Ji * sw[..., None],
                     None if Jr is None else Jr * sw[..., None], idx_i, idx_r))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Pose-graph constraint rows (relative motion and rotation, common position,
+# linear motion, heatmaps, gauge fix).  They couple two or three rig
+# instances (and scale variables), so they fold into the reduced system as
+# J^T J rows after its assembly; their counts are pose-graph sized, never
+# observation sized.
+# ---------------------------------------------------------------------------
+
+
+def _rotmat_c2w(rvec_w2c):
+    """Cam-to-world rotation matrices [K, 3, 3] from world-to-cam angle-axis
+    rows [K, 3]."""
+    return rot.rotvec_to_matrix(-rvec_w2c)
+
+
+def _shot_pos(i6, r6):
+    """Shot origins [K, 3] in world coordinates through the rig camera."""
+    return _origin(i6) + rot.rotate(-i6[:, :3], _origin(r6))
+
+
+def _shot_rot_c2w(i6, r6):
+    """Shot cam-to-world rotations [K, 3, 3] through the rig camera."""
+    return _rotmat_c2w(i6[:, :3]) @ _rotmat_c2w(r6[:, :3])
+
+
+def _bicubic(grid, row, col):
+    """Catmull-Rom bicubic interpolation of grids [K, H, W] at fractional
+    (row[K], col[K]) with the borders clamped (ceres::BiCubicInterpolator
+    over Grid2D, as the reference's heatmap cost)."""
+    H, W = grid.shape[1], grid.shape[2]
+    r0 = torch.floor(row)
+    c0 = torch.floor(col)
+    tr = row - r0
+    tc = col - c0
+
+    def weights(t):  # [K, 4]
+        return torch.stack([
+            ((-0.5 * t + 1.0) * t - 0.5) * t,
+            (1.5 * t - 2.5) * t * t + 1.0,
+            ((-1.5 * t + 2.0) * t + 0.5) * t,
+            (0.5 * t - 0.5) * t * t,
+        ], dim=-1)
+
+    wr, wc = weights(tr), weights(tc)
+    offs = torch.arange(-1, 3, device=grid.device)
+    ri = torch.clamp(r0.long()[:, None] + offs, 0, H - 1)
+    ci = torch.clamp(c0.long()[:, None] + offs, 0, W - 1)
+    k = torch.arange(grid.shape[0], device=grid.device)[:, None, None]
+    patch = grid[k, ri[:, :, None], ci[:, None, :]]  # [K, 4, 4]
+    return ((wr[:, None, :] @ patch) @ wc[:, :, None])[:, 0, 0]
+
+
+def _rm_res(i6a, i6b, sa, sb, rvec, tvec, s_obs, inv_sd, obs_scale):
+    """Relative motion rows [K, 7] (RelativeMotionError)."""
+    rres = rot.matrix_to_rotvec(
+        rot.rotvec_to_matrix(rvec) @ _rotmat_c2w(i6a[:, :3]).transpose(1, 2)
+        @ _rotmat_c2w(i6b[:, :3]))
+    tres = tvec - sb[:, None] * rot.rotate(i6b[:, :3],
+                                           _origin(i6a) - _origin(i6b))
+    safe_sa = torch.where(torch.abs(sa) < 1e-30, 1e-30, sa)
+    sres = torch.where(obs_scale, s_obs - sb / safe_sa, 0.0)
+    return torch.cat([rres, tres, sres[:, None]], dim=-1) * inv_sd
+
+
+def _rr_res(i6a, i6b, r6a, r6b, rvec, inv_sd):
+    """Relative rotation rows [K, 3]."""
+    Ra = _shot_rot_c2w(i6a, r6a)
+    Rb = _shot_rot_c2w(i6b, r6b)
+    return rot.matrix_to_rotvec(
+        rot.rotvec_to_matrix(rvec) @ Ra.transpose(1, 2) @ Rb) * inv_sd
+
+
+def _cp_res(i6a, i6b, r6a, r6b, margin, inv_sd):
+    """Common position rows [K, 3]: xy beyond the margin, z."""
+    e = _shot_pos(i6a, r6a) - _shot_pos(i6b, r6b)
+    exy = torch.clamp_min(torch.abs(e[:, :2]) - margin[:, None], 0.0)
+    return torch.cat([exy, e[:, 2:3]], dim=-1) * inv_sd
+
+
+def _lin_res(i60, i61, i62, r60, r61, r62, alpha, pos_inv, rot_inv):
+    """Linear motion rows [K, 6] (LinearMotionError)."""
+    t0 = _shot_pos(i60, r60)
+    t1 = _shot_pos(i61, r61)
+    t2 = _shot_pos(i62, r62)
+    t20 = t2 - t0
+    t10 = t1 - t0
+    n20sq = torch.sum(t20 * t20, dim=-1)
+    n10sq = torch.sum(t10 * t10, dim=-1)
+    big = n20sq > 1e-15 * 1e-15
+    safe20 = torch.sqrt(torch.where(big, n20sq, 1.0))
+    safe10 = torch.sqrt(torch.clamp_min(n10sq, 1e-30))
+    ratio_form = (alpha - safe10 / safe20)[:, None].expand(-1, 3)
+    diff_form = alpha[:, None] * t20 - t10
+    pos = pos_inv[:, None] * torch.where(big[:, None], ratio_form, diff_form)
+    R0 = _shot_rot_c2w(i60, r60)
+    R1 = _shot_rot_c2w(i61, r61)
+    R2 = _shot_rot_c2w(i62, r62)
+    r20 = alpha[:, None] * rot.matrix_to_rotvec(R2 @ R0.transpose(1, 2))
+    r01 = rot.matrix_to_rotvec(R0 @ R1.transpose(1, 2))
+    rres = rot_inv[:, None] * rot.matrix_to_rotvec(
+        rot.rotvec_to_matrix(r20) @ rot.rotvec_to_matrix(r01))
+    return torch.cat([pos, rres], dim=-1)
+
+
+def _hm_res(i6, r6, hmap, res, off, inv_sd):
+    """Heatmap rows [K, 1]: the grid's bicubic value at the shot's xy."""
+    H, W = hmap.shape[1], hmap.shape[2]
+    pos = _shot_pos(i6, r6)
+    row = H / 2.0 - (pos[:, 1] - off[:, 1]) / res
+    col = W / 2.0 + (pos[:, 0] - off[:, 0]) / res
+    return (_bicubic(hmap, row, col) * inv_sd)[:, None]
+
+
+def _gauge_res(i6a, i6b, norm):
+    """Gauge rows [K, 1]: log(|o_a - o_b| / norm)."""
+    e = _origin(i6a) - _origin(i6b)
+    return torch.log(torch.sqrt(torch.sum(e * e, dim=-1) + 1e-20)
+                     / norm)[:, None]
+
+
+_GRAPH_KEYS = ("rm_i", "rr_i", "cp_i", "lin_i0", "hm_inst", "gauge_i")
+
+
+def _has_graph(data) -> bool:
+    return any(data.get(k) is not None and data[k].shape[0] > 0
+               for k in _GRAPH_KEYS)
+
+
+def _graph_blocks(state, data):
+    """(fn, diff args, const args, Jacobian slots, loss) of each family
+    present: slots are (argnum, family, index) with family "i" (instances),
+    "r" (rig cameras) or "s" (scales); loss is (kind, c[K]) or None."""
+    inst, rigcam, scales = state[0], state[1], state[4]
+    d = data
+    out = []
+    if d.get("rm_i") is not None and d["rm_i"].shape[0] > 0:
+        out.append((
+            _rm_res,
+            (inst[d["rm_i"]], inst[d["rm_j"]], scales[d["rm_si"]],
+             scales[d["rm_sj"]]),
+            (d["rm_rvec"], d["rm_tvec"], d["rm_scale"], d["rm_inv_sd"],
+             d["rm_obs_scale"]),
+            [(0, "i", d["rm_i"]), (1, "i", d["rm_j"]),
+             (2, "s", d["rm_si"]), (3, "s", d["rm_sj"])],
+            ("CauchyLoss", d["rm_loss_c"])))
+    if d.get("rr_i") is not None and d["rr_i"].shape[0] > 0:
+        out.append((
+            _rr_res,
+            (inst[d["rr_i"]], inst[d["rr_j"]], rigcam[d["rr_ri"]],
+             rigcam[d["rr_rj"]]),
+            (d["rr_rvec"], d["rr_inv_sd"]),
+            [(0, "i", d["rr_i"]), (1, "i", d["rr_j"]),
+             (2, "r", d["rr_ri"]), (3, "r", d["rr_rj"])],
+            ("CauchyLoss", d["rr_loss_c"])))
+    if d.get("cp_i") is not None and d["cp_i"].shape[0] > 0:
+        out.append((
+            _cp_res,
+            (inst[d["cp_i"]], inst[d["cp_j"]], rigcam[d["cp_ri"]],
+             rigcam[d["cp_rj"]]),
+            (d["cp_margin"], d["cp_inv_sd"][:, None]),
+            [(0, "i", d["cp_i"]), (1, "i", d["cp_j"]),
+             (2, "r", d["cp_ri"]), (3, "r", d["cp_rj"])],
+            ("TukeyLoss", torch.ones_like(d["cp_inv_sd"]))))
+    if d.get("lin_i0") is not None and d["lin_i0"].shape[0] > 0:
+        out.append((
+            _lin_res,
+            (inst[d["lin_i0"]], inst[d["lin_i1"]], inst[d["lin_i2"]],
+             rigcam[d["lin_r0"]], rigcam[d["lin_r1"]], rigcam[d["lin_r2"]]),
+            (d["lin_alpha"], d["lin_pos_inv_sd"], d["lin_rot_inv_sd"]),
+            [(0, "i", d["lin_i0"]), (1, "i", d["lin_i1"]),
+             (2, "i", d["lin_i2"]), (3, "r", d["lin_r0"]),
+             (4, "r", d["lin_r1"]), (5, "r", d["lin_r2"])],
+            ("CauchyLoss", torch.ones_like(d["lin_alpha"]))))
+    if d.get("hm_inst") is not None and d["hm_inst"].shape[0] > 0:
+        out.append((
+            _hm_res,
+            (inst[d["hm_inst"]], rigcam[d["hm_rigcam"]]),
+            (d["heatmaps"][d["hm_map"]], d["hm_res"][d["hm_map"]],
+             d["hm_offset"], d["hm_inv_sd"]),
+            [(0, "i", d["hm_inst"]), (1, "r", d["hm_rigcam"])],
+            None))
+    if d.get("gauge_i") is not None and d["gauge_i"].shape[0] > 0:
+        out.append((
+            _gauge_res,
+            (inst[d["gauge_i"]], inst[d["gauge_j"]]),
+            (d["gauge_norm"],),
+            [(0, "i", d["gauge_i"]), (1, "i", d["gauge_j"])],
+            None))
+    return out
+
+
+def _graph_residuals(state, data, raw=False):
+    """Every pose-graph family's rows.  With `raw`, a list of (r [K, M],
+    loss); otherwise of (r_w [K, M], slots), r_w the sqrt-IRLS-weighted rows
+    and slots (family, idx [K], J_w [K, M, bdim]) their Jacobian blocks by
+    forward mode (`_push_rows`, the reference's jacfwd).  Losses as
+    bundle_adjuster.cc: Cauchy(threshold * robust_multiplier) for relative
+    motions, Cauchy(threshold) for relative rotations, Tukey(1) for common
+    positions, Cauchy(1) for linear motions, none for heatmaps and the
+    gauge."""
+    out = []
+    for fn, diff, const, slots, loss in _graph_blocks(state, data):
+        if raw:
+            out.append((fn(*diff, *const), loss))
+            continue
+        r, Js = _push_rows(fn, diff, const)
+        if loss is None:
+            sw = torch.ones((r.shape[0], 1), dtype=r.dtype, device=r.device)
+        else:
+            kind, c = loss
+            s = torch.sum(r * r, dim=-1, keepdim=True)
+            pos = c[:, None] > 0
+            c2 = torch.where(pos, c[:, None] * c[:, None], 1.0)
+            w = torch.where(pos, LOSSES[kind][1](s / c2), 1.0)
+            sw = torch.sqrt(torch.clamp_min(w, 1e-12))
+        blocks = [(family, idx, Js[argnum] * sw[..., None])
+                  for argnum, family, idx in slots]
+        out.append((r * sw, blocks))
+    return out
+
+
+def _graph_cost(state, data):
+    """Total pose-graph objective (the accept/reject trial)."""
+    total = torch.zeros((), dtype=state[3].dtype, device=state[3].device)
+    for r, loss in _graph_residuals(state, data, raw=True):
+        s = torch.sum(r * r, dim=-1)
+        if loss is None:
+            total = total + 0.5 * torch.sum(s)
+            continue
+        kind, c = loss
+        c2 = torch.where(c > 0, c * c, 1.0)
+        per = torch.where(c > 0, 0.5 * c2 * LOSSES[kind][0](s / c2), 0.5 * s)
+        total = total + torch.sum(per)
+    return total
+
+
+def _fold_graph_rows(S, b, state, data, ni, nr, nc, pmax, ns):
+    """Add the pose-graph rows' J^T J and J^T r to the reduced system
+    (S over [instances | rig cameras | cameras | scales]).
+
+    Each family's Jacobian is laid out dense over S's columns, [K * M, D],
+    with every slot's block placed by a 0/1 one-hot product (exact, as the
+    reference's `_fold_graph_rows`), and the products are two matmuls.  No
+    float scatter-add: the placement is exact and the sums run in the
+    matmul's fixed order, so S has the same bits on every run."""
+    dtype = state[3].dtype
+    di, dr, dcam = ni * 6, nr * 6, nc * pmax
+    D = di + dr + dcam + ns
+    offs = {"i": 0, "r": di, "s": di + dr + dcam}
+    n_of = {"i": ni, "r": nr, "s": ns}
+    opt_of = {"i": data["opt_inst"], "r": data["opt_rigcam"],
+              "s": data.get("opt_scales")}
+    for r_w, blocks in _graph_residuals(state, data):
+        K, M = r_w.shape
+        Jd = torch.zeros((K, M, D), dtype=dtype, device=S.device)
+        for family, idx, J in blocks:
+            opt = opt_of[family]
+            if opt is not None:
+                J = J * opt[idx].to(dtype)[:, None, None]
+            E = _one_hot(idx, n_of[family], dtype)  # [K, n]
+            o, width = offs[family], n_of[family] * J.shape[2]
+            Jd[:, :, o:o + width] += (
+                E[:, None, :, None] * J[:, :, None, :]).reshape(K, M, width)
+        Jf = Jd.reshape(K * M, D)
+        S = S + Jf.T @ Jf
+        b = b + Jf.T @ r_w.reshape(K * M)
+    return S, b
 
 
 # ---------------------------------------------------------------------------
@@ -962,9 +1244,12 @@ def _build_reduced_system(state, data, lam, loss, loss_threshold, pmax, ni,
 
 def _assemble_S(state, data, lam, S_II, S_RR, S_IR, S_RC, S_IC, S_CC,
                 b_i, b_r, b_c, ni, nr, nc, pmax, rig_jac=False):
-    """Epilogue: prior families + block assembly + identity rows for fixed
-    parameters + Marquardt damping + symmetrization.  The rig-camera
-    priors and the shot priors' rig-camera rows enter with `rig_jac`."""
+    """Epilogue: prior families + block assembly + scale variables and
+    pose-graph rows + identity rows for fixed parameters + Marquardt
+    damping + symmetrization.  The rig-camera priors and the shot priors'
+    rig-camera rows enter with `rig_jac`.  Every route (kernel assembly,
+    fused dense assembly, generic) ends here, so every route folds the
+    pose-graph rows."""
     dtype = state[3].dtype
 
     for pr, pJ, kind in _prior_residuals(state, data):
@@ -1030,12 +1315,25 @@ def _assemble_S(state, data, lam, S_II, S_RR, S_IR, S_RC, S_IC, S_CC,
     )
     b = torch.cat([b_i, b_r, b_c])
 
+    # Scale variables (a fifth state entry) and the pose-graph rows.
+    ns = state[4].shape[0] if len(state) > 4 else 0
+    if ns:
+        S = torch.nn.functional.pad(S, (0, ns, 0, ns))
+        b = torch.nn.functional.pad(b, (0, ns))
+    if _has_graph(data):
+        S, b = _fold_graph_rows(S, b, state, data, ni, nr, nc, pmax, ns)
+
     # Identity rows for fixed/padded parameters keep S nonsingular.
-    fixed_dims = torch.cat([
+    fixed = [
         (~data["opt_inst"]).repeat_interleave(6),
         (~data["opt_rigcam"]).repeat_interleave(6),
         (~data["opt_cam"]).reshape(-1),
-    ]).to(dtype)
+    ]
+    if ns:
+        opt_s = data.get("opt_scales")
+        fixed.append(~opt_s if opt_s is not None else torch.zeros(
+            ns, dtype=torch.bool, device=S.device))
+    fixed_dims = torch.cat(fixed).to(dtype)
     S = S + torch.diag(fixed_dims)
 
     # Marquardt scaling with the Ceres diagonal clamp
@@ -1097,7 +1395,10 @@ def _lm_step(state, data, lam, loss, loss_threshold, pmax, ni, nr, nc,
     dx_r = dx_c[di:di + dr].reshape(nr, 6)
     dx_cam = dx_c[di + dr:di + dr + dcam].reshape(nc, pmax)
     dx_p = _back_substitute(back, dx_i, dx_cam, ni, pmax, dx_r=dx_r)
-    return (inst - dx_i, rigcam - dx_r, cam - dx_cam, points - dx_p)
+    new_state = (inst - dx_i, rigcam - dx_r, cam - dx_cam, points - dx_p)
+    if len(state) > 4:
+        new_state = new_state + (state[4] - dx_c[di + dr + dcam:],)
+    return new_state
 
 
 def _total_cost(state, data, loss, loss_threshold, dense=False,
@@ -1105,7 +1406,7 @@ def _total_cost(state, data, loss, loss_threshold, dense=False,
                 rig_transform=False, rig_jac=False, canonical=True,
                 generic=False):
     """Objective only (the accept/reject trial): the reprojection cost plus
-    every prior family.  On the kernel route the cost comes from a cost
+    every prior family and the pose-graph rows.  On the kernel route the cost comes from a cost
     kernel: the dense layout with one camera and a point count that is a
     multiple of 128 takes the dense cost kernel, which reads no index
     arrays (the reference's condition).  The generic route evaluates each
@@ -1138,6 +1439,8 @@ def _total_cost(state, data, loss, loss_threshold, dense=False,
     for pr in _shot_prior_residuals(state, data, raw=True):
         s = torch.sum(pr * pr, dim=-1)
         total = total + torch.sum(0.5 * rho_c(s))
+    if _has_graph(data):
+        total = total + _graph_cost(state, data)
     return total + _point_prior_cost(points, data)
 
 
@@ -1176,7 +1479,23 @@ def _lm_solve(state, data, lam0, tol, max_iterations, loss, loss_threshold,
     return state, cost0, cost, lam, accepted
 
 
-_GRAPH_KEYS = ("rm_i", "rr_i", "cp_i", "lin_i0", "hm_inst", "gauge_i")
+def _instance_covariances(state, data, loss, loss_threshold, pmax, ni, nr,
+                          nc, dense=False, **statics):
+    """Marginal 6 x 6 covariances [NI, 6, 6] of the rig-instance poses
+    (ComputeCovariances, bundle_adjuster.cc:1123-1194) and whether they are
+    valid: the points are Schur-marginalized, so the inverse of the
+    undamped reduced system restricted to an instance's diagonal block is
+    that pose's marginal covariance (in the world-to-camera tangent
+    parametrization).  Valid when the inverse is finite and every diagonal
+    entry is non-negative, as the reference's rule."""
+    S, _, _ = _build_reduced_system(state, data, 0.0, loss, loss_threshold,
+                                    pmax, ni, nr, nc, dense, **statics)
+    Sinv = linalg.inv_spd(S)
+    blocks = Sinv[:ni * 6, :ni * 6].reshape(ni, 6, ni, 6)
+    cov = torch.einsum("aiaj->aij", blocks)
+    valid = torch.all(torch.isfinite(Sinv)) & torch.all(
+        torch.einsum("aii->ai", cov) >= 0)
+    return cov, valid
 
 
 def _single_ptype(ptype):
@@ -1185,19 +1504,6 @@ def _single_ptype(ptype):
     if not isinstance(ptype, str) and len(ptype) == 1:
         return ptype[0][0]
     return ptype
-
-
-def _check_supported(problem: BAProblem) -> None:
-    """Raise NotImplementedError for what the port does not have: cluster
-    scale variables and pose-graph constraint families."""
-    if problem.scales is not None and len(problem.scales) > 0:
-        raise NotImplementedError("scale variables are not ported yet")
-    for key in _GRAPH_KEYS:
-        arr = getattr(problem, key)
-        if arr is not None and np.asarray(arr).shape[0] > 0:
-            raise NotImplementedError(
-                "pose-graph constraint families are not ported yet"
-            )
 
 
 def solver_statics(problem: BAProblem, dense: bool) -> dict:
@@ -1224,16 +1530,32 @@ def solver_statics(problem: BAProblem, dense: bool) -> dict:
     )
 
 
+# Each pose-graph family's fields ("name:kind", kind i(nt), f(loat) or
+# b(ool)), the first naming the family's constraint count.
+_GRAPH_FIELDS = (
+    ("rm_i:i", "rm_j:i", "rm_si:i", "rm_sj:i", "rm_rvec:f", "rm_tvec:f",
+     "rm_scale:f", "rm_inv_sd:f", "rm_obs_scale:b", "rm_loss_c:f"),
+    ("rr_i:i", "rr_j:i", "rr_ri:i", "rr_rj:i", "rr_rvec:f", "rr_inv_sd:f",
+     "rr_loss_c:f"),
+    ("cp_i:i", "cp_j:i", "cp_ri:i", "cp_rj:i", "cp_margin:f", "cp_inv_sd:f"),
+    ("lin_i0:i", "lin_i1:i", "lin_i2:i", "lin_r0:i", "lin_r1:i", "lin_r2:i",
+     "lin_alpha:f", "lin_pos_inv_sd:f", "lin_rot_inv_sd:f"),
+    ("hm_inst:i", "hm_rigcam:i", "hm_map:i", "hm_offset:f", "hm_inv_sd:f",
+     "heatmaps:f", "hm_res:f"),
+    ("gauge_i:i", "gauge_j:i", "gauge_norm:f"),
+)
+
+
 def device_problem(problem: BAProblem, dtype: torch.dtype,
                    device: torch.device):
     """Lay `problem` out for the solver (dense instance-slot grid when it
     fits, else the canonical (point, slot) layout; a map that mixes types
     keeps its type-sorted observations) and move it to `device`.
-    Returns (laid-out problem, dense flag, state tuple, data dict);
+    Returns (laid-out problem, dense flag, state tuple (inst, rigcam, cam,
+    points, scales), data dict);
     `solver_statics(problem, dense)` gives the rest of the solve's
     configuration."""
     problem = dataclasses.replace(problem, ptype=_single_ptype(problem.ptype))
-    _check_supported(problem)
     problem, dense = canonicalize_problem_dense(problem)
 
     def opt(x, default):
@@ -1250,7 +1572,7 @@ def device_problem(problem: BAProblem, dtype: torch.dtype,
 
     num_obs = len(problem.obs_uv)
     state = (f(problem.inst), f(problem.rigcam), f(problem.cam),
-             f(problem.points))
+             f(problem.points), f(opt(problem.scales, np.zeros(0))))
     data = {
         "obs_uv": f(problem.obs_uv),
         "obs_inv_sd": f(problem.obs_inv_sd),
@@ -1291,6 +1613,16 @@ def device_problem(problem: BAProblem, dtype: torch.dtype,
         np.any(np.asarray(problem.point_prior_loss) > 0)
     ):
         data["point_prior_loss"] = f(problem.point_prior_loss)
+    if problem.opt_scales is not None:
+        data["opt_scales"] = b8(problem.opt_scales)
+    cast = {"i": i32, "f": f, "b": b8}
+    for fields in _GRAPH_FIELDS:
+        head = getattr(problem, fields[0].split(":")[0])
+        if head is None or np.asarray(head).shape[0] == 0:
+            continue
+        for spec in fields:
+            name, kind = spec.split(":")
+            data[name] = cast[kind](getattr(problem, name))
     return problem, dense, state, data
 
 
@@ -1305,9 +1637,9 @@ def bundle_adjust(
 ) -> BAResult:
     """Run LM to convergence on `device` (CUDA unless told otherwise).  The
     result names the route its solve took: `fused_dense`, `dense` or
-    `canonical` on the kernel route, `generic` otherwise."""
-    if compute_covariances:
-        raise NotImplementedError("covariances are not ported yet")
+    `canonical` on the kernel route, `generic` otherwise.  With
+    `compute_covariances` it carries the rig instances' marginal
+    covariances (`_instance_covariances`)."""
     device = resolve_device(device)
     if device.type == "cuda":
         # Full-precision f32 products, as the reference's HIGHEST.
@@ -1329,14 +1661,24 @@ def bundle_adjust(
         loss=problem.loss, loss_threshold=float(problem.loss_threshold),
         pmax=pmax, ni=ni, nr=nr, nc=nc, dense=dense, **statics,
     )
+    covariances, covariance_valid = None, False
+    if compute_covariances:
+        cov, valid = _instance_covariances(
+            state, data, loss=problem.loss,
+            loss_threshold=float(problem.loss_threshold), pmax=pmax, ni=ni,
+            nr=nr, nc=nc, dense=dense, **statics)
+        covariances, covariance_valid = cov.cpu().numpy(), bool(valid)
     return BAResult(
         inst=state[0].cpu().numpy(),
         rigcam=state[1].cpu().numpy(),
         cam=state[2].cpu().numpy(),
         points=state[3].cpu().numpy(),
+        scales=state[4].cpu().numpy(),
         initial_cost=float(cost0),
         final_cost=float(cost1),
         iterations=int(accepted),
         lam=float(lam1),
+        covariances=covariances,
+        covariance_valid=covariance_valid,
         route=route,
     )

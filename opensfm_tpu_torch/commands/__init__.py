@@ -6,7 +6,8 @@ images to a reconstruction: `extract_metadata`, `detect_features`,
 `mesh`, `undistort` and `compute_depthmaps`, with `run_all` running the
 eight stages of the reference's `bin/opensfm_run_all`, and the exports
 `export_ply`, `export_colmap`, `export_bundler`, `export_visualsfm`,
-`export_geocoords`, `export_pmvs` and `export_openmvs`."""
+`export_geocoords`, `export_pmvs` and `export_openmvs`, and the submodel
+path `create_submodels` and `align_submodels`."""
 
 from opensfm_tpu_torch.commands.command import CommandBase  # noqa: F401
 from opensfm_tpu_torch.commands.command_runner import command_runner  # noqa: F401
@@ -14,9 +15,11 @@ from opensfm_tpu_torch.commands.command_runner import command_runner  # noqa: F4
 
 def opensfm_commands():
     from opensfm_tpu_torch.commands import (
+        align_submodels,
         bundle,
         compute_depthmaps,
         create_rig,
+        create_submodels,
         create_tracks,
         detect_features,
         export_bundler,
@@ -45,4 +48,5 @@ def opensfm_commands():
             export_ply.Command(), export_colmap.Command(),
             export_bundler.Command(), export_visualsfm.Command(),
             export_geocoords.Command(), export_pmvs.Command(),
-            export_openmvs.Command(), create_rig.Command()]
+            export_openmvs.Command(), create_rig.Command(),
+            create_submodels.Command(), align_submodels.Command()]

@@ -1,9 +1,10 @@
 """Small dense linear algebra on torch tensors.
 
 Port of `opensfm_tpu.ops.linalg` for what the bundle and matching paths
-use: the SPD solve by Cholesky (the damped normal equations), the small
-general solve by Gauss-Jordan (the 5-point solver) and the closed-form 3x3
-inverse, determinant and solve (per-point Schur blocks, triangulation).
+use: the SPD solve and inverse by Cholesky (the damped normal equations,
+the covariances), the small general solve by Gauss-Jordan (the 5-point
+solver) and the closed-form 3x3 inverse, determinant and solve (per-point
+Schur blocks, triangulation).
 """
 
 from __future__ import annotations
@@ -26,6 +27,14 @@ def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bad = (info != 0)[..., None, None]
     x = torch.where(bad, torch.full_like(x, float("nan")), x)
     return x[..., 0] if vec else x
+
+
+def inv_spd(A: torch.Tensor) -> torch.Tensor:
+    """Inverse of a symmetric positive-definite matrix by Cholesky
+    (`solve_spd` against the identity; NaN where A is not positive
+    definite)."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return solve_spd(A, eye.expand(A.shape))
 
 
 def solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,7 @@ rig instances (fixed or optimized rig cameras) and depth priors.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import shutil
 from typing import Any, Dict, List, Optional, Tuple
@@ -272,6 +273,50 @@ def make_model_problem(n_shots=16, n_points=512, seed=0, track_window=None,
         ptype=kinds[0] if nc == 1 else tuple(segments),
         loss="SoftLOneLoss", loss_threshold=1.0, **extra,
     )
+
+
+def add_pose_graph(problem: BAProblem, seed: int = 0) -> BAProblem:
+    """`problem` with every pose-graph family of `ba/lm.py` and three scale
+    variables (the first fixed; instances of the first half take the
+    second, the rest the third): relative motions and rotations between
+    consecutive instances (random observations), common positions and
+    linear motions on the first instances, two heatmap priors on a 16 x 16
+    grid (one sampled at an integer, border coordinate) and a gauge fix.
+    Needs at least 6 instances."""
+    rng = np.random.default_rng(seed)
+    ni = len(problem.inst)
+    K = ni - 1
+    ii = np.arange(K)
+    jj = ii + 1
+    zk = np.zeros(K, np.int64)
+    origin3 = Pose(problem.inst[3, :3], problem.inst[3, 3:]).get_origin()
+    return dataclasses.replace(
+        problem,
+        scales=np.array([1.0, 1.2, 0.9]),
+        opt_scales=np.array([False, True, True]),
+        rm_i=ii, rm_j=jj, rm_si=np.where(ii < ni // 2, 1, 2),
+        rm_sj=np.where(jj < ni // 2, 1, 2),
+        rm_rvec=rng.normal(size=(K, 3)) * 0.01,
+        rm_tvec=rng.normal(size=(K, 3)), rm_scale=np.full(K, 1.1),
+        rm_inv_sd=np.ones((K, 7)), rm_obs_scale=ii % 2 == 0,
+        rm_loss_c=np.full(K, 1.5),
+        rr_i=ii, rr_j=jj, rr_ri=zk, rr_rj=zk,
+        rr_rvec=rng.normal(size=(K, 3)) * 0.01, rr_inv_sd=np.ones((K, 3)),
+        rr_loss_c=np.ones(K),
+        cp_i=ii[:3], cp_j=jj[:3], cp_ri=zk[:3], cp_rj=zk[:3],
+        cp_margin=np.full(3, 0.1), cp_inv_sd=np.ones(3),
+        lin_i0=ii[:K - 1], lin_i1=ii[:K - 1] + 1, lin_i2=ii[:K - 1] + 2,
+        lin_r0=zk[:K - 1], lin_r1=zk[:K - 1], lin_r2=zk[:K - 1],
+        lin_alpha=np.full(K - 1, 0.5), lin_pos_inv_sd=np.ones(K - 1),
+        lin_rot_inv_sd=np.ones(K - 1),
+        hm_inst=np.array([0, 3]), hm_rigcam=np.zeros(2, np.int64),
+        hm_map=np.array([0, 0]),
+        hm_offset=np.array([[0.0, 0.0],
+                            [origin3[0] + 8.0, origin3[1] - 3.0]]),
+        hm_inv_sd=np.ones(2), heatmaps=rng.random((1, 16, 16)),
+        hm_res=np.array([1.0]),
+        gauge_i=np.array([0]), gauge_j=np.array([5]),
+        gauge_norm=np.array([3.0]))
 
 
 def shot_id(i: int) -> str:

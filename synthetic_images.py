@@ -18,6 +18,7 @@ key its model.
 from __future__ import annotations
 
 import os
+import shutil
 import struct
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
@@ -505,3 +506,127 @@ def rig_reading(rig_cameras) -> Tuple[float, float]:
     rel = b.compose(a.inverse())
     return (float(np.linalg.norm(rel.get_origin())),
             float(np.linalg.norm(rel.rotation)))
+
+
+# The submodel path on a rendered dataset (chip_smoke.py phase 21,
+# submodel_study.py).
+
+SUBMODEL_INPUTS = ("images", "exif", "features", "matches", "config.yaml",
+          "camera_models.json", "reference_lla.json")
+
+
+def copy_submodel_inputs(src: str, out: str, config: dict) -> None:
+    """The inputs of the submodel path (images, EXIF, features, matches,
+    config with `config` over it) copied from `src` to `out`."""
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    for name in SUBMODEL_INPUTS:
+        p = os.path.join(src, name)
+        if os.path.isdir(p):
+            shutil.copytree(p, os.path.join(out, name))
+        elif os.path.isfile(p):
+            shutil.copy(p, out)
+    cfg_path = os.path.join(out, "config.yaml")
+    cfg = {}
+    if os.path.isfile(cfg_path):
+        with open(cfg_path) as f:
+            cfg = yaml.safe_load(f) or {}
+    cfg.update(config)
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+
+
+def gps_positions(path: str):
+    """(images, [N, 2] topocentric xy) of the views with GPS, in the
+    dataset's reference (made from the EXIF where there is none yet)."""
+    from opensfm_tpu_torch.dataset import DataSet
+
+    data = DataSet(path)
+    data.init_reference()
+    reference = data.load_reference()
+    images, xy = [], []
+    for image in data.images():
+        gps = data.load_exif(image).get("gps", {})
+        if "latitude" in gps:
+            x, y, _ = reference.to_topocentric(gps["latitude"],
+                                               gps["longitude"], 0)
+            images.append(image)
+            xy.append([x, y])
+    return images, np.array(xy)
+
+
+def submodel_overlap(path: str, size: int, neighbours: int = 2) -> float:
+    """The `submodel_overlap` (metres) that grows every GPS cluster of
+    `size` by at least its `neighbours` nearest outside views: the clusters
+    are `large.tools.kmeans`' (as `create_submodels` forms them), the
+    distance of a view to a cluster its distance to the nearest member."""
+    from opensfm_tpu_torch.large import tools
+
+    _, xy = gps_positions(path)
+    labels, centers = tools.kmeans(xy, max(int(np.ceil(len(xy) / size)), 1))
+    need = 0.0
+    for label in range(len(centers)):
+        inside = xy[labels == label]
+        d = np.sort([np.linalg.norm(inside - p, axis=1).min()
+                     for p in xy[labels != label]])
+        need = max(need, float(d[min(neighbours, len(d)) - 1]))
+    return need * 1.001
+
+
+def true_centres(path: str, n_views: int = 16, step_deg: float = 10.0):
+    """{image: the render's camera centre} in the dataset's topocentric
+    frame (`synthetic_images.view_poses` through the render's GPS origin)."""
+    from opensfm_tpu_torch import geo
+    from opensfm_tpu_torch.dataset import DataSet
+
+    render = geo.TopocentricConverter(*GPS_ORIGIN)
+    reference = DataSet(path).load_reference()
+    out = {}
+    for i, (_, c) in enumerate(view_poses(n_views, step_deg)):
+        lla = render.to_lla(*c)
+        topo = np.array(reference.to_topocentric(*lla))
+        for ext in ("jpg", "png"):
+            out[f"view_{i:03d}.{ext}"] = topo
+    return out
+
+
+def grade_aligned(path: str, truth) -> dict:
+    """Each submodel's views and the shots of its reconstruction's partials,
+    its reconstructed camera centres' RMS against `truth` (GPS-anchored,
+    before the alignment), and its aligned camera centres
+    (`reconstruction.aligned.json`) against `truth` with no similarity fit:
+    RMS and largest error (metres) over every submodel's shots, and the
+    largest distance between the aligned centres of a shot two submodels
+    share."""
+    from opensfm_tpu_torch.dataset import DataSet
+    from opensfm_tpu_torch.large.metadataset import MetaDataSet
+
+    subs, errors, raw, by_shot = [], [], [], {}
+    for sub in MetaDataSet(path).get_submodel_paths():
+        data = DataSet(sub)
+        recs = data.load_reconstruction() if data.reconstruction_exists() \
+            else []
+        aligned = data.load_reconstruction("reconstruction.aligned.json") \
+            if data.reconstruction_exists("reconstruction.aligned.json") \
+            else []
+        subs.append({"name": os.path.basename(sub),
+                     "views": len(data.images()),
+                     "partials": [len(r.shots) for r in recs]})
+        for rec in recs:
+            raw.extend(float(np.linalg.norm(s.pose.get_origin() - truth[sid]))
+                       for sid, s in rec.shots.items())
+        for rec in aligned:
+            for sid, shot in rec.shots.items():
+                o = shot.pose.get_origin()
+                errors.append(float(np.linalg.norm(o - truth[sid])))
+                by_shot.setdefault(sid, []).append(o)
+    shared = [max(float(np.linalg.norm(a - b)) for a in cs for b in cs)
+              for cs in by_shot.values() if len(cs) > 1]
+    e = np.array(errors) if errors else np.array([np.inf])
+    r = np.array(raw) if raw else np.array([np.inf])
+    return {"submodels": subs, "aligned_shots": len(errors),
+            "shared_shots": len(shared),
+            "reconstructed_centre_rms_m": float(np.sqrt(np.mean(r ** 2))),
+            "centre_rms_m": float(np.sqrt(np.mean(e ** 2))),
+            "centre_max_m": float(e.max()),
+            "shared_max_m": max(shared, default=float("inf"))}

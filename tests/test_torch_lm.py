@@ -215,21 +215,19 @@ def _unported(kind):
 @pytest.mark.parametrize("kind", ["fisheye", "mixed", "rig_pose", "rig_opt",
                                   "depth", "graph", "scales"])
 def test_unported_features_raise(kind):
-    """The features earlier slices refused: pose-graph families and scale
-    variables still raise; a fisheye camera, mixed types, a fixed
-    non-identity rig camera, an optimized rig camera and depth rows are
-    ported and solve as the JAX package solves them (the generic route)."""
+    """The features earlier slices refused are all ported now and solve as
+    the JAX package solves them: a fisheye camera, mixed types, a fixed
+    non-identity rig camera, an optimized rig camera and depth rows on the
+    generic route; a pose-graph family (the gauge fix) and a scale
+    variable on the kernel route of this mono perspective map."""
     problem = _unported(kind)
-    if kind in ("graph", "scales"):
-        with pytest.raises(NotImplementedError):
-            port_lm.bundle_adjust(problem, device="cpu")
-        return
     want = ref_lm.bundle_adjust(
         ref_lm.BAProblem(**{f.name: getattr(problem, f.name)
                             for f in dataclasses.fields(ref_lm.BAProblem)}),
         max_iterations=10)
     got = port_lm.bundle_adjust(problem, max_iterations=10, device="cpu")
-    assert got.route == "generic"
+    assert got.route == ("generic" if kind not in ("graph", "scales")
+                         else "dense")
     assert got.iterations == want.iterations
     assert abs(got.final_cost - want.final_cost) <= 1e-10 * want.final_cost
     for name in ("inst", "rigcam", "cam", "points"):
@@ -238,9 +236,19 @@ def test_unported_features_raise(kind):
 
 
 def test_covariances_raise():
-    with pytest.raises(NotImplementedError):
-        port_lm.bundle_adjust(port_lm.problem_from_numpy(_make_problem(8, 64)),
-                              compute_covariances=True, device="cpu")
+    """`compute_covariances=True`, refused by earlier slices, gives the JAX
+    package's covariances and `valid` (tests/test_torch_bundle_adjuster.py
+    holds them with the pose-graph families)."""
+    problem = _make_problem(8, 64)
+    want = ref_lm.bundle_adjust(problem, max_iterations=5,
+                                compute_covariances=True)
+    got = port_lm.bundle_adjust(port_lm.problem_from_numpy(problem),
+                                max_iterations=5, compute_covariances=True,
+                                device="cpu")
+    assert got.covariance_valid == want.covariance_valid
+    assert got.covariances.shape == (8, 6, 6)
+    np.testing.assert_allclose(got.covariances, want.covariances, rtol=0,
+                               atol=1e-8 * np.abs(want.covariances).max())
 
 
 def test_multi_gpu_bundle_raises(monkeypatch):
