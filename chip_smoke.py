@@ -185,10 +185,25 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     card against the CPU (phase 5's tolerance, covariances within 1e-8);
     one LM step of the 64 x 8,192 dense problem with every pose-graph
     family on the fused dense assembly against the canonical route's.
+22. statistics, the report and the synthetic circle scene.  (a) The
+    port's `synthetic_data` builds tests/test_reconstruction_incremental.py's
+    circle scene (seed 42 from a `RandomState`: 20 shots, ~5,000 points,
+    10 GCPs, a GPS bias of (10, 0, 100) m) and
+    `reconstruction.incremental_reconstruction` runs on the card with that
+    test's three config keys, graded by `synthetic_scene.compare` within
+    upstream's bounds (CIRCLE_BOUNDS) with the GPS bias recovered; rows 1
+    and 2 must launch (a mono perspective map); its statistics and the four
+    figures on the card against the CPU (bit-equal images; drawing ms).
+    (b) `compute_statistics` and `export_report` through the command runner
+    on a copy of phase 15's dataset on the card, `compute_statistics
+    --device cpu` on a second copy: stats.json card = CPU (STATS_REL),
+    every figure bit-equal, report.pdf well formed (`read_pdf`: xref
+    offsets, streams, >= 4 A4 pages, the section titles in order, each
+    image its PNG's pixels); each command's seconds and the figures'.
 Then the {"reconstruct": {...}}, {"image_chain": {...}},
 {"merge_and_algorithms": {...}}, {"models": {...}}, {"rig_chain": {...}},
-{"akaze_chain": {...}}, {"vocab_chain": {...}} and {"pose_graph": {...}}
-JSON lines, the card's name and power limit,
+{"akaze_chain": {...}}, {"vocab_chain": {...}}, {"pose_graph": {...}} and
+{"statistics": {...}} JSON lines, the card's name and power limit,
 one {"kernels": [...]} JSON line, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -3617,6 +3632,320 @@ VARIANT_SHOTS, VARIANT_POINTS = 64, 8192  # the TPU script's problem
 VARIANT_RAGGED = (37, 1000)
 
 
+# Phase 22: statistics, the report and the synthetic circle scene.  The
+# scene is tests/test_reconstruction_incremental.py:33-47's (seed 42, GPS
+# noise 5 m, GCP noise (0.01, 0.1) m, 10 GCPs shifted by (10, 0, 100) m, its
+# three config keys), graded by upstream's bounds (:57-83), fixed before
+# the first card run: (low, high), both exclusive, ratio_cameras exactly 1.
+CIRCLE_SEED = 42
+CIRCLE_CONFIG = {"bundle_compensate_gps_bias": True, "bundle_use_gcp": True,
+                 "bundle_max_iterations": 20}
+CIRCLE_BOUNDS = {
+    "ratio_points": (0.7, 1.0),
+    "aligned_position_rmse": (0.0, 0.03),
+    "aligned_rotation_rmse": (0.0, 0.003),
+    "aligned_points_rmse": (0.0, 0.1),
+    "absolute_gps_rmse": (3.0, 7.0),
+    "absolute_gcp_rmse_horizontal": (0.01, 0.05),
+    "absolute_gcp_rmse_vertical": (0.08, 0.18),
+}
+CIRCLE_BIAS = {0: (9.8, 10.4), 2: (99.8, 100.4)}  # GPS bias, x and z (m)
+# stats.json card vs CPU: floats relative to the larger value, absolute
+# below 1 (tests/test_torch_stats.py's rule; the numbers are host NumPy on
+# both, the GCPs triangulated in f64 on each device).
+STATS_REL = 1e-12
+STATS_MIN_PAGES = 4
+# What compute_statistics reads of phase 15's dataset, beyond what
+# synthetic_bundle.subset_dataset copies (config, camera models, image
+# list, exif/, features/).
+STATS_FILES = ("tracks.csv", "reconstruction.json", "reference_lla.json")
+SECTION_TITLES = ("Dataset Summary", "Processing Summary", "Features Details",
+                  "Reconstruction Details", "Tracks Details",
+                  "Camera Models Details", "Processing Time Details",
+                  "GPS/GCP Errors Details")
+
+
+def read_pdf(path):
+    """(pages, text runs in order, images in order as (width, height,
+    pixels)) of a PDF written by `opensfm_tpu_torch.pdf`, checking its
+    structure on the way: every xref offset at its `n 0 obj`, every stream
+    of its /Length, the page count, A4 pages, RGB 8-bit images."""
+    import re
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data.startswith(b"%PDF-1.4\n"), f"{path}: a PDF 1.4 header")
+    start = int(re.search(rb"startxref\n(\d+)\n%%EOF\n$", data).group(1))
+    check(data[start:start + 5] == b"xref\n", f"{path}: startxref -> xref")
+    head = data[start + 5:].split(b"\n", 1)
+    first, count = (int(v) for v in head[0].split())
+    table, trailer = head[1][:20 * count], head[1][20 * count:]
+    check(re.match(rb"trailer\n<< /Size %d /Root 1 0 R >>" % count, trailer)
+          is not None, f"{path}: the trailer")
+    objects = {}
+    for k in range(count):
+        entry = table[20 * k:20 * k + 20]
+        if entry[17:18] == b"f":
+            continue
+        num, pos = first + k, int(entry[:10])
+        prefix = b"%d 0 obj\n" % num
+        check(data[pos:pos + len(prefix)] == prefix,
+              f"{path}: xref offset of object {num}")
+        body = data[pos + len(prefix):]
+        m = re.match(rb"(<<.*?>>)\nstream\n", body, re.S)
+        if m:
+            length = int(re.search(rb"/Length (\d+)", m.group(1)).group(1))
+            raw = body[m.end():m.end() + length]
+            check(body[m.end() + length:].startswith(b"\nendstream\nendobj"),
+                  f"{path}: /Length of object {num}")
+            objects[num] = (m.group(1), zlib.decompress(raw)
+                            if b"/FlateDecode" in m.group(1) else raw)
+        else:
+            objects[num] = (body[:body.index(b"\nendobj")], None)
+
+    def ref(obj, key):
+        return int(re.search(rb"/" + key + rb" (\d+) 0 R", obj).group(1))
+
+    pages_obj = objects[ref(objects[1][0], b"Pages")][0]
+    kids = [int(k) for k in re.findall(rb"(\d+) 0 R",
+                                       pages_obj.split(b"/Kids")[1])]
+    check(int(re.search(rb"/Count (\d+)", pages_obj).group(1)) == len(kids),
+          f"{path}: /Count")
+    texts, images = [], []
+    for kid in kids:
+        page = objects[kid][0]
+        check(b"/MediaBox [0 0 595.28 841.89]" in page, f"{path}: A4 pages")
+        content = objects[ref(page, b"Contents")][1]
+        xobjects = dict(re.findall(rb"/(Im\d+) (\d+) 0 R", page))
+        for m in re.finditer(rb"\(((?:\\.|[^\\)])*)\) Tj|/(Im\d+) Do",
+                             content):
+            if m.group(1) is not None:
+                texts.append(re.sub(rb"\\(.)", rb"\1", m.group(1))
+                             .decode("cp1252"))
+                continue
+            head_, pixels = objects[int(xobjects[m.group(2)])]
+            check(b"/DeviceRGB" in head_ and b"/BitsPerComponent 8" in head_,
+                  f"{path}: RGB 8-bit images")
+            w = int(re.search(rb"/Width (\d+)", head_).group(1))
+            h = int(re.search(rb"/Height (\d+)", head_).group(1))
+            images.append((w, h, np.frombuffer(pixels, np.uint8)))
+    return len(kids), texts, images
+
+
+def _stats_gap(got, want, path=""):
+    """Largest gap between two statistics trees (floats relative to the
+    larger, absolute below 1); raises on any other difference."""
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and list(got) == list(want),
+              f"stats keys at {path}")
+        return max([_stats_gap(got[k], want[k], f"{path}.{k}")
+                    for k in want] or [0.0])
+    if isinstance(want, (list, tuple)):
+        check(isinstance(got, (list, tuple)) and len(got) == len(want),
+              f"stats length at {path}")
+        return max([_stats_gap(g, w, f"{path}[{k}]")
+                    for k, (g, w) in enumerate(zip(got, want))] or [0.0])
+    if isinstance(want, float) and isinstance(got, float):
+        return abs(got - want) / max(abs(got), abs(want), 1.0)
+    check(type(got) is type(want) and got == want,
+          f"stats {path}: {got!r} == {want!r}")
+    return 0.0
+
+
+def check_report(stats_path):
+    """report.pdf under `stats_path`: well formed, >= STATS_MIN_PAGES pages,
+    the section titles in order, each figure an image of its PNG's pixels.
+    Returns the page count."""
+    from opensfm_tpu_torch import io
+
+    pages, texts, images = read_pdf(os.path.join(stats_path, "report.pdf"))
+    check(pages >= STATS_MIN_PAGES, f"report.pdf has {pages} pages >= "
+          f"{STATS_MIN_PAGES}")
+    check(texts[:2] == ["OpenSfM Quality Report",
+                        "Processed with OpenSfM-TPU"], "the report's title")
+    it = iter(texts)
+    check(all(any(t == title for t in it) for title in SECTION_TITLES),
+          "the report's sections in order")
+    names = sorted(os.listdir(stats_path))
+    pngs = (["topview.png"] + [n for n in names if n.startswith("heatmap_")
+                               and n.endswith(".png")][:4]
+            + ["matchgraph.png"] + [n for n in names
+                                    if n.startswith("residuals_")
+                                    and n.endswith(".png")])
+    pngs = [n for n in pngs if os.path.isfile(os.path.join(stats_path, n))]
+    check(len(images) == len(pngs) >= 4, f"report images {len(images)} for "
+          f"{pngs}")
+    for (w, h, pixels), name in zip(images, pngs):
+        png = io.imread(os.path.join(stats_path, name))
+        check(png.shape[:2] == (h, w) and np.array_equal(pixels,
+                                                         png.reshape(-1)),
+              f"report image {name} equals its PNG")
+    return pages
+
+
+def _stats_copy(src, out):
+    """A copy of phase 15's dataset with what compute_statistics reads;
+    copy2 keeps reconstruction.json's mtime, and so the `date`."""
+    import synthetic_bundle as sb
+    from opensfm_tpu_torch.dataset import DataSet
+
+    sb.subset_dataset(src, out, DataSet(src).images())
+    for name in STATS_FILES:
+        if os.path.isfile(os.path.join(src, name)):
+            shutil.copy2(os.path.join(src, name), out)
+    shutil.copytree(os.path.join(src, "reports"), os.path.join(out, "reports"))
+
+
+def _figure_specs(tm, rec):
+    from opensfm_tpu_torch import stats
+
+    return {"matchgraph": (stats.draw_matchgraph,
+                           stats.matchgraph_figure(tm, [rec])),
+            "topview": (stats.draw_topview, stats.topview_figure([rec])),
+            "heatmap": (stats.draw_heatmap, stats.heatmap_figures([rec])[0]),
+            "residual_grid": (stats.draw_residual_grid,
+                              stats.residual_grid_figures(tm, [rec])[0])}
+
+
+def run_statistics(dev="cuda"):
+    """Phase 22.  (a) The circle scene from the port's synthetic_data
+    (CIRCLE_SEED, `rng=RandomState`) through `incremental_reconstruction`
+    on the card, graded by `synthetic_scene.compare` within CIRCLE_BOUNDS,
+    the GPS bias recovered, rows 1 and 2 launched; its statistics and
+    figures on the card against the CPU.  (b) `compute_statistics` and
+    `export_report` through the command runner on a copy of phase 15's
+    dataset on the card, `compute_statistics --device cpu` on a second
+    copy: stats.json equal within STATS_REL, every figure bit-equal,
+    report.pdf well formed (`check_report`)."""
+    import copy
+
+    from opensfm_tpu_torch import geo, reconstruction, stats
+    from opensfm_tpu_torch.commands import command_runner, opensfm_commands
+    from opensfm_tpu_torch.synthetic_data import (synthetic_dataset,
+                                                  synthetic_examples,
+                                                  synthetic_scene)
+
+    out = {}
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(CIRCLE_SEED)
+    reference = geo.TopocentricConverter(47.0, 6.0, 0)
+    scene = synthetic_examples.synthetic_circle_scene(reference, rng=rng)
+    inp = synthetic_scene.SyntheticInputData(
+        scene.get_reconstruction(), reference, 40, 1.0, 5.0, 0.1,
+        (0.01, 0.1), False, 10, [10.0, 0.0, 100.0], rng=rng)
+    data = synthetic_dataset.SyntheticDataSet(
+        inp.reconstruction, inp.exifs, inp.features, inp.tracks_manager,
+        inp.gcps)
+    data.config.update(CIRCLE_CONFIG)
+    out["circle_build_s"] = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    _, recs = reconstruction.incremental_reconstruction(
+        data, inp.tracks_manager, device=dev)
+    torch.cuda.synchronize()
+    out["circle_reconstruct_s"] = time.perf_counter() - t0
+    out["launches"] = launches()
+    errors = synthetic_scene.compare(inp.reconstruction, inp.gcps, recs[0],
+                                     device=dev)
+    bias = recs[0].biases["1"].translation
+    out["circle"] = {k: errors[k] for k in ("ratio_cameras",
+                                            *CIRCLE_BOUNDS)}
+    out["circle"]["bias"] = [float(v) for v in bias]
+    out["circle"]["shots"] = [len(r.shots) for r in recs]
+    n_obs = sum(len(inp.tracks_manager.get_shot_observations(s))
+                for s in inp.tracks_manager.get_shot_ids())
+    log(f"  circle scene ({len(inp.reconstruction.shots)} shots, "
+        f"{len(inp.reconstruction.points)} points, "
+        f"{n_obs} observations): built in "
+        f"{out['circle_build_s']:.2f} s, reconstructed in "
+        f"{out['circle_reconstruct_s']:.2f} s; {json.dumps(out['circle'])}")
+    log(f"  kernel launches over the reconstruction: {out['launches']}")
+    check(errors["ratio_cameras"] == 1.0, "circle: every shot reconstructed")
+    for key, (lo, hi) in CIRCLE_BOUNDS.items():
+        check(lo < errors[key] < hi, f"circle: {lo} < {key} "
+              f"{errors[key]:.6g} < {hi}")
+    for axis, (lo, hi) in CIRCLE_BIAS.items():
+        check(lo < bias[axis] < hi, f"circle: GPS bias[{axis}] "
+              f"{bias[axis]:.4f} in ({lo}, {hi})")
+    for name in ("fused_residual_jacobian", "fused_cost"):
+        check(out["launches"][name] > 0, f"{name} launched on the circle")
+
+    # Its statistics and figures on the card against the CPU.
+    rec = recs[0]
+    card, cpu = copy.deepcopy(rec), copy.deepcopy(rec)
+    t0 = time.perf_counter()
+    got = stats.compute_all_statistics(data, inp.tracks_manager, [card],
+                                       device=dev)
+    out["circle_stats_s"] = time.perf_counter() - t0
+    want = stats.compute_all_statistics(data, inp.tracks_manager, [cpu],
+                                        device="cpu")
+    out["circle_stats_gap"] = _stats_gap(got, want)
+    check(out["circle_stats_gap"] <= STATS_REL,
+          f"circle statistics card vs CPU {out['circle_stats_gap']:.3g}")
+    out["circle_figure_ms"] = {}
+    for name, (draw, spec) in _figure_specs(inp.tracks_manager,
+                                            card).items():
+        draw(spec, dev)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image = draw(spec, dev)
+        out["circle_figure_ms"][name] = (time.perf_counter() - t0) * 1e3
+        check(np.array_equal(image, draw(spec, "cpu")),
+              f"circle {name}: card = CPU, bit for bit")
+    log(f"  circle statistics {out['circle_stats_s']:.2f} s (card vs CPU "
+        f"gap {out['circle_stats_gap']:.3g}); figures drawn on the card, "
+        f"ms: {json.dumps(out['circle_figure_ms'])}")
+
+    # (b) The commands on phase 15's dataset, card and CPU.
+    src = os.path.join(WORK, "image_chain")
+    paths = {d: os.path.join(WORK, f"statistics_{d}") for d in ("card", "cpu")}
+    for path in paths.values():
+        _stats_copy(src, path)
+    for label, device in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        result = command_runner(opensfm_commands, argv=[
+            "compute_statistics", paths[label], "--device", device])
+        torch.cuda.synchronize()
+        out[f"compute_statistics_{label}_s"] = time.perf_counter() - t0
+        out[f"figures_{label}_s"] = result["figures_s"]
+    t0 = time.perf_counter()
+    command_runner(opensfm_commands, argv=["export_report", paths["card"],
+                                           "--device", dev])
+    out["export_report_s"] = time.perf_counter() - t0
+    stats_dirs = {k: os.path.join(p, "stats") for k, p in paths.items()}
+    with open(os.path.join(stats_dirs["card"], "stats.json")) as f:
+        got = json.load(f)
+    with open(os.path.join(stats_dirs["cpu"], "stats.json")) as f:
+        want = json.load(f)
+    out["stats_gap"] = _stats_gap(got, want)
+    check(out["stats_gap"] <= STATS_REL,
+          f"stats.json card vs CPU {out['stats_gap']:.3g}")
+    figures = sorted(n for n in os.listdir(stats_dirs["card"])
+                     if n.endswith(".png"))
+    check(figures == sorted(n for n in os.listdir(stats_dirs["cpu"])
+                            if n.endswith(".png")) and len(figures) >= 4,
+          f"the same figures on the card and the CPU: {figures}")
+    for name in figures:
+        with open(os.path.join(stats_dirs["card"], name), "rb") as a, \
+                open(os.path.join(stats_dirs["cpu"], name), "rb") as b:
+            check(a.read() == b.read(), f"{name}: card = CPU, bit for bit")
+    out["figures"] = figures
+    out["report_pages"] = check_report(stats_dirs["card"])
+    rs = got["reconstruction_statistics"]
+    out["phase15_stats"] = {k: rs[k] for k in (
+        "reconstructed_shots_count", "reconstructed_points_count",
+        "observations_count", "reprojection_error_pixels")}
+    log(f"  compute_statistics on phase 15's dataset: card "
+        f"{out['compute_statistics_card_s']:.2f} s (figures s: "
+        f"{json.dumps(out['figures_card_s'])}), CPU "
+        f"{out['compute_statistics_cpu_s']:.2f} s; export_report "
+        f"{out['export_report_s']:.2f} s, {out['report_pages']} pages; "
+        f"stats.json card vs CPU gap {out['stats_gap']:.3g}; "
+        f"{len(figures)} figures bit-equal; {json.dumps(out['phase15_stats'])}")
+    return out
+
+
 def check_assembly_variants():
     """Phase 13: each mode's kernel against its plain version on the card,
     at the profiler's 64 x 8,192 problem and on VARIANT_RAGGED, f32: every
@@ -4032,6 +4361,14 @@ def main() -> int:
     pose_graph["phase_s"] = time.perf_counter() - t0
     log(f"  done in {pose_graph['phase_s']:.1f} s")
 
+    log(f"phase 22: the circle scene (synthetic_data, seed {CIRCLE_SEED}) "
+        f"reconstructed; compute_statistics and export_report on phase 15's "
+        f"dataset, card and CPU ({card})")
+    t0 = time.perf_counter()
+    statistics = run_statistics()
+    statistics["phase_s"] = time.perf_counter() - t0
+    log(f"  done in {statistics['phase_s']:.1f} s")
+
     paths = {name: ("bundle command 256x32768xK=8, f64", counts)
              for name in ("fused_residual_jacobian", "fused_cost")}
     paths.update({name: ("bundle_adjust dense 64x8192, f64", dense_counts)
@@ -4109,6 +4446,7 @@ def main() -> int:
         kernels[-1]["launches_submodels"] = \
             pose_graph["submodels"]["launches"][name]
         kernels[-1]["launches_facade"] = pose_graph["facade"]["launches"][name]
+        kernels[-1]["launches_synthetic"] = statistics["launches"][name]
         if name == "fused_schur_assembly":
             kernels[-1].update(sub_kernel_ms=schur_split,
                                product_step_torch_mm_ms=product_mm_ms)
@@ -4133,6 +4471,8 @@ def main() -> int:
         part: {k: v for k, v in d.items() if k != "launches"}
         if isinstance(d, dict) else d
         for part, d in pose_graph.items()}}), flush=True)
+    print(json.dumps({"statistics": {k: v for k, v in statistics.items()
+                                     if k != "launches"}}), flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,8 +6,10 @@ images to a reconstruction: `extract_metadata`, `detect_features`,
 `mesh`, `undistort` and `compute_depthmaps`, with `run_all` running the
 eight stages of the reference's `bin/opensfm_run_all`, and the exports
 `export_ply`, `export_colmap`, `export_bundler`, `export_visualsfm`,
-`export_geocoords`, `export_pmvs` and `export_openmvs`, and the submodel
-path `create_submodels` and `align_submodels`."""
+`export_geocoords`, `export_pmvs` and `export_openmvs`, the submodel
+path `create_submodels` and `align_submodels`, and the quality report
+`compute_statistics` (stats.json and the figures, drawn without
+matplotlib) and `export_report` (stats/report.pdf)."""
 
 from opensfm_tpu_torch.commands.command import CommandBase  # noqa: F401
 from opensfm_tpu_torch.commands.command_runner import command_runner  # noqa: F401
@@ -18,6 +20,7 @@ def opensfm_commands():
         align_submodels,
         bundle,
         compute_depthmaps,
+        compute_statistics,
         create_rig,
         create_submodels,
         create_tracks,
@@ -28,6 +31,7 @@ def opensfm_commands():
         export_openmvs,
         export_ply,
         export_pmvs,
+        export_report,
         export_visualsfm,
         extend_reconstruction,
         extract_metadata,
@@ -49,4 +53,5 @@ def opensfm_commands():
             export_bundler.Command(), export_visualsfm.Command(),
             export_geocoords.Command(), export_pmvs.Command(),
             export_openmvs.Command(), create_rig.Command(),
-            create_submodels.Command(), align_submodels.Command()]
+            create_submodels.Command(), align_submodels.Command(),
+            compute_statistics.Command(), export_report.Command()]
