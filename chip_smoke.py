@@ -200,12 +200,29 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     every figure bit-equal, report.pdf well formed (`read_pdf`: xref
     offsets, streams, >= 4 A4 pages, the section titles in order, each
     image its PNG's pixels); each command's seconds and the figures'.
+23. the sharded bundle (`opensfm_tpu_torch.parallel`) on a virtual mesh
+    of SHARDS shards on the card.  (a) Phase 3's map (256 x 32,768 x
+    tracks of 8) on the dense-grid route, f64, against the single-device
+    `bundle_adjust` (the SHARD_ gates below: relative final cost, every
+    parameter, equal iterations), and f32 against the f64 solve; rows 3,
+    4 and 5 launch shards x trials (row 3 once more a shard, the initial
+    cost).  (b) The assembled-Schur route at SHARD_SMALL on an optimized
+    rig camera with up-vector rows and on relative motions with scale
+    variables (the pose-graph gates), row 1 on the Schur cost.  (c) One
+    fixed-lambda CG step against the replicated-dense step
+    (SHARD_CG_TOL), and a short CG solve (row 1 on its cost).  (d)
+    SHARD_RANKS processes of a gloo group, each with 2 shards on the card:
+    their replicated outputs equal each other and one process's mesh of 4.
+    (e) With more than one card, the map on `default_mesh()` and through
+    the `bundle` command; on one card the phase says that this run did
+    not happen.  Each run's seconds, trials and peak device memory.
 Then the {"reconstruct": {...}}, {"image_chain": {...}},
 {"merge_and_algorithms": {...}}, {"models": {...}}, {"rig_chain": {...}},
-{"akaze_chain": {...}}, {"vocab_chain": {...}}, {"pose_graph": {...}} and
-{"statistics": {...}} JSON lines, the card's name and power limit,
-one {"kernels": [...]} JSON line, and as the last line
-{"ok": true, "device": {...}}.
+{"akaze_chain": {...}}, {"vocab_chain": {...}}, {"pose_graph": {...}},
+{"statistics": {...}} and {"sharded": {...}} JSON lines, the card's name
+and power limit, one {"kernels": [...]} JSON line (each row's
+`launches_sharded` read over phase 23's sharded runs), and as the last
+line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -3946,6 +3963,329 @@ def run_statistics(dev="cuda"):
     return out
 
 
+# Phase 23: the sharded bundle (`opensfm_tpu_torch.parallel`).  Gates
+# written before the first card run: the JAX tests' sharded-vs-single-device
+# bounds (tests/test_distributed_pipeline.py:449-471 and :760-784,
+# tests/test_distributed_ba.py:244-252, tests/test_multihost_ba.py).
+SHARDS = 4  # virtual shards on cuda:0
+SHARD_REL_COST = 1e-9  # relative final cost, f64 sharded vs one device
+SHARD_PARAM = 1e-8  # inst, cam, rig cameras and points, f64
+SHARD_GRAPH_REL_COST = 1e-7  # the pose-graph families
+SHARD_GRAPH_INST = 1e-6
+SHARD_GRAPH_SCALES = 1e-8
+# The f32 dense-grid solve's final cost against the f64 solve's: 10 x the
+# larger CPU reading of the same comparison (4 shards: 1.04e-6 at 32 x
+# 4,096 x K=8, 4.81e-9 at 64 x 8,192 x K=8).
+SHARD_F32_REL_COST = 1e-5
+SHARD_CG_TOL = {"inst": (1e-5, 1e-6), "cam": (1e-5, 1e-6),
+                "points": (1e-4, 1e-6)}  # (rtol, atol), fixed-lambda step
+SHARD_SMALL = (32, 4096, 8)  # shots, points, track window: (b) and (c)
+SHARD_RANKS = 2  # (d): gloo ranks on cuda:0, 2 shards each
+SHARD_RANK_SIZE = (16, 1024, 8)  # (d)'s problem
+SHARD_RANK_STEPS = 3
+
+
+def _sharded_problem(kind):
+    """Phase 23's (b) problems at SHARD_SMALL: an optimized rig camera with
+    up-vector rows, or one pose-graph family (relative motions with two
+    scale variables)."""
+    import synthetic_bundle as sb
+
+    p = sb.make_problem(*SHARD_SMALL[:2], track_window=SHARD_SMALL[2])
+    ni = len(p.inst)
+    if kind == "rig_opt_up":
+        p.rigcam = np.array([[0.0, 0.02, 0.0, 0.1, 0.0, 0.05]])
+        p.opt_rigcam = np.ones(1, bool)
+        p.rigcam_prior = p.rigcam.copy()
+        p.rigcam_prior_inv_sd = np.full((1, 6), 10.0)
+        p.up_inst = np.arange(ni, dtype=np.int64)
+        p.up_rigcam = np.zeros(ni, dtype=np.int64)
+        p.up_vec = np.tile([0.0, 0.0, 1.0], (ni, 1))
+        p.up_inv_sd = np.full(ni, 10.0)
+        return p
+    from opensfm_tpu_torch.geometry import rotation as rot
+
+    i = np.arange(ni - 1, dtype=np.int32)
+    j = i + 1
+    Ri = rot.rotvec_to_matrix(torch.as_tensor(p.inst[i, :3])).numpy()
+    Rj = rot.rotvec_to_matrix(torch.as_tensor(p.inst[j, :3])).numpy()
+    rel = np.einsum("kij,klj->kil", Rj, Ri).transpose(0, 2, 1)
+    K = len(i)
+    p.scales = np.ones(2)
+    p.opt_scales = np.array([False, True])
+    p.rm_i, p.rm_j = i, j
+    p.rm_si = np.zeros(K, np.int32)
+    p.rm_sj = np.ones(K, np.int32)
+    p.rm_rvec = rot.matrix_to_rotvec(torch.as_tensor(rel)).numpy()
+    p.rm_tvec = np.zeros((K, 3))
+    p.rm_scale = np.ones(K)
+    p.rm_inv_sd = np.full((K, 7), 5.0)
+    p.rm_obs_scale = np.zeros(K, bool)
+    p.rm_loss_c = np.ones(K)
+    return p
+
+
+def _sharded_run(label, fn, out, counts):
+    """Run `fn` with the launch counts from 0 and the peak memory reset;
+    adds the launches to `counts` and records seconds and peak memory."""
+    from opensfm_tpu_torch import context
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    context.reset_dispatch_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = launches()
+    for k, v in got.items():
+        counts[k] = counts.get(k, 0) + v
+    out[label] = dict(s=secs, peak_bytes=torch.cuda.max_memory_allocated(),
+                      trials=context.DISPATCH_COUNTS.get("sharded_trial", 0))
+    return res, got
+
+
+def _same_solve(label, got, want, rel_cost, param, iterations=True):
+    rel = abs(got.final_cost - want.final_cost) / abs(want.final_cost)
+    gaps = {k: float(np.abs(np.asarray(getattr(got, k))
+                            - np.asarray(getattr(want, k))).max())
+            for k in ("inst", "cam", "rigcam", "points")}
+    log(f"  {label}: cost {got.initial_cost:.12g} -> {got.final_cost:.12g} "
+        f"in {got.iterations} iterations (one device: {want.final_cost:.12g} "
+        f"in {want.iterations}); rel {rel:.3g}; max gaps {gaps}")
+    check(rel <= rel_cost, f"{label}: relative final cost {rel:.3g}")
+    check(all(v <= param for v in gaps.values()),
+          f"{label}: parameters within {param}")
+    if iterations:
+        check(got.iterations == want.iterations, f"{label}: iterations")
+    return rel, gaps
+
+
+def sharded_rank(port: int, rank: int, dev: str = "cuda") -> None:
+    """Phase 23 (d), one rank of a gloo group on `dev` (run by
+    `run_sharded` in a subprocess): SHARD_RANK_STEPS fixed-lambda CG steps
+    on a mesh of SHARD_RANKS x 2 shards; prints the replicated outputs'
+    checksums as JSON."""
+    import torch.distributed as dist
+
+    from opensfm_tpu_torch.parallel.mesh import Mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=SHARD_RANKS)
+    try:
+        inst, cam = _rank_steps(Mesh([dev] * 2, group=dist.group.WORLD),
+                                dev)
+        print(json.dumps({"rank": rank, "inst": inst, "cam": cam}),
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_steps(mesh, dev):
+    """The (d) steps over `mesh`: checksums (sums of |x|) of inst and cam."""
+    import synthetic_bundle as sb
+    from opensfm_tpu_torch.parallel import distributed_ba as dba
+
+    problem = dba.shard_problem(sb.make_problem(
+        *SHARD_RANK_SIZE[:2], track_window=SHARD_RANK_SIZE[2]),
+        mesh.n_shards)
+    a = {k: v.to(dev) for k, v in dba._cg_args(
+        problem, mesh.n_shards, np.float64).items()}
+    a["lam"] = torch.tensor(1e-4, dtype=torch.float64, device=dev)
+    win = problem.cg_window
+    step = dba.make_sharded_cg_lm_step(
+        mesh, "points", "perspective", 3, len(problem.inst),
+        len(problem.cam), cg_iters=200, win=win)
+    for _ in range(SHARD_RANK_STEPS):
+        a["inst"], a["cam"], a["points"] = step(*(a[k] for k in step.names))
+    return (float(a["inst"].abs().sum()), float(a["cam"].abs().sum()))
+
+
+def run_sharded(big, card, dev="cuda"):
+    """Phase 23: the sharded bundle on the card (see the module
+    docstring).  Returns the phase's figures and the launches of its
+    sharded runs."""
+    import socket
+
+    from opensfm_tpu_torch.parallel import mesh as mesh_lib
+
+    vmesh = mesh_lib.virtual_mesh(dev, SHARDS)
+    out, counts, runs = {"card": card, "shards": SHARDS}, {}, {}
+    # (d)'s ranks start first: their processes' start-up (~10 s) overlaps
+    # (a)-(c), whose seconds are read with them running beside.
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    t_ranks = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         f"chip_smoke.sharded_rank({port}, {rank}, {dev!r})"], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(SHARD_RANKS)]
+    try:
+        return _run_sharded(big, dev, vmesh, out, counts, runs, procs,
+                            t_ranks)
+    finally:
+        for p_ in procs:  # only after a failure are they still running
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+
+
+def _run_sharded(big, dev, vmesh, out, counts, runs, procs, t_ranks):
+    """Phase 23's (a)-(e), with (d)'s ranks already started."""
+    import synthetic_bundle as sb
+    from opensfm_tpu_torch.ba import lm
+    from opensfm_tpu_torch.parallel import distributed_ba as dba
+    from opensfm_tpu_torch.parallel import mesh as mesh_lib
+
+    # (a) The dense-grid route at phase 3's size, f64 and f32.
+    t0 = time.perf_counter()
+    want = lm.bundle_adjust(big, dtype=torch.float64, device=dev)
+    out["single_device_s"] = time.perf_counter() - t0
+    dense = {}
+    for dt in (np.float64, np.float32):
+        res, got = _sharded_run(
+            f"dense_{dt.__name__}",
+            lambda: dba.bundle_adjust_sharded(big, dtype=dt, mesh=vmesh),
+            runs, counts)
+        check(res.route == "sharded_dense", "phase 3's map takes the grid")
+        dense[dt] = res
+        trials = runs[f"dense_{dt.__name__}"]["trials"]
+        runs[f"dense_{dt.__name__}"].update(iterations=res.iterations,
+                                            launches=got)
+        check(got["fused_schur_assembly"] == got["fused_back_substitute"]
+              == SHARDS * trials and trials >= res.iterations > 0,
+              f"rows 4 and 5: shards x trials ({trials}; {got})")
+        check(got["fused_cost_dense"] == SHARDS * (trials + 1),
+              f"row 3: shards x (trials + the initial cost) ({got})")
+    rel, gaps = _same_solve("(a) dense f64", dense[np.float64], want,
+                            SHARD_REL_COST, SHARD_PARAM)
+    rel32 = abs(dense[np.float32].final_cost - dense[np.float64].final_cost) \
+        / dense[np.float64].final_cost
+    log(f"  (a) dense f32: cost {dense[np.float32].final_cost:.9g} in "
+        f"{dense[np.float32].iterations} iterations; rel to f64 {rel32:.3g}")
+    check(rel32 <= SHARD_F32_REL_COST, f"(a) f32 relative cost {rel32:.3g}")
+    out["dense"] = dict(rel_cost=rel, gaps=gaps, rel_cost_f32=rel32)
+
+    # (b) The assembled-Schur route: a rig with up-vector rows, one
+    # pose-graph family; f64 against one device.
+    for kind in ("rig_opt_up", "relative_motion"):
+        p = _sharded_problem(kind)
+        want = lm.bundle_adjust(p, max_iterations=12, device=dev)
+        res, got = _sharded_run(
+            f"schur_{kind}",
+            lambda: dba.bundle_adjust_sharded(
+                p, max_iterations=12, dtype=np.float64, mesh=vmesh,
+                solver="schur"), runs, counts)
+        check(res.route == "sharded_schur", f"(b) {kind}: the Schur route")
+        runs[f"schur_{kind}"].update(iterations=res.iterations,
+                                     launches=got)
+        if kind == "rig_opt_up":
+            out[kind] = _same_solve(f"(b) {kind}", res, want,
+                                    SHARD_REL_COST, SHARD_PARAM)
+        else:
+            rel = abs(res.final_cost - want.final_cost) / want.final_cost
+            dinst = float(np.abs(res.inst - want.inst).max())
+            dscale = float(np.abs(res.scales - want.scales).max())
+            log(f"  (b) {kind}: rel {rel:.3g}, inst {dinst:.3g}, scales "
+                f"{dscale:.3g}; {res.iterations} iterations")
+            check(rel <= SHARD_GRAPH_REL_COST and dinst <= SHARD_GRAPH_INST
+                  and dscale <= SHARD_GRAPH_SCALES, f"(b) {kind} gates")
+            check(got["fused_cost"] > 0, "(b) row 1 on the Schur cost")
+            out[kind] = dict(rel_cost=rel, inst=dinst, scales=dscale)
+
+    # (c) One fixed-lambda CG step against the replicated-dense step.
+    p = dba.shard_problem(sb.make_problem(
+        *SHARD_SMALL[:2], track_window=SHARD_SMALL[2]), SHARDS)
+    a = {k: v.to(dev) for k, v in dba._cg_args(p, SHARDS,
+                                                np.float64).items()}
+    a["lam"] = torch.tensor(1e-4, dtype=torch.float64, device=dev)
+    ni, nr, nc = len(p.inst), len(p.rigcam), len(p.cam)
+    zero_priors = dict(a, cam_prior_inv_sd=torch.zeros_like(
+        a["cam_prior_inv_sd"]), point_prior_inv_sd=torch.zeros_like(
+        a["point_prior_inv_sd"]))
+    ref_step = dba.make_sharded_lm_step(vmesh, "points", "perspective", 3,
+                                        ni, nr, nc)
+    want = ref_step(*(a[k] for k in ref_step.names[:10]),
+                    torch.as_tensor(p.point_obs, dtype=torch.int32,
+                                    device=dev),
+                    *(a[k] for k in ref_step.names[11:]))
+    cg = dba.make_sharded_cg_lm_step(vmesh, "points", "perspective", 3, ni,
+                                     nc, cg_iters=400, cg_tol=1e-12,
+                                     win=p.cg_window)
+    t0 = time.perf_counter()
+    got_cg = cg(*(zero_priors[k] for k in cg.names))
+    torch.cuda.synchronize()
+    gaps = {}
+    for (name, (rtol, atol)), g, w in zip(SHARD_CG_TOL.items(), got_cg, want):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        gaps[name] = float(np.max(np.abs(g - w) / (atol + rtol * np.abs(w))))
+    log(f"  (c) CG step against the dense step: {time.perf_counter() - t0:.2f}"
+        f" s; gap / tolerance {gaps}")
+    check(all(v <= 1.0 for v in gaps.values()), "(c) CG step within bounds")
+    res, got = _sharded_run(
+        "cg_solve", lambda: dba.bundle_adjust_sharded(
+            sb.make_problem(*SHARD_SMALL[:2], track_window=SHARD_SMALL[2]),
+            max_iterations=5, dtype=np.float64, mesh=vmesh, solver="cg"),
+        runs, counts)
+    check(res.route == "sharded_cg" and res.final_cost < res.initial_cost
+          and got["fused_cost"] > 0, f"(c) CG solve, row 1 ({got})")
+    runs["cg_solve"].update(iterations=res.iterations, launches=got)
+    out["cg_step"] = gaps
+
+    # (d), collected below: two ranks of a gloo group on the card, 2 shards
+    # each, against one process's 4-shard mesh.
+    ranks = []
+    for p_ in procs:
+        try:
+            so, se = p_.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+        check(p_.returncode == 0, f"(d) rank failed: {se[-2000:]}")
+        ranks.append(json.loads(so.strip().splitlines()[-1]))
+    single = _rank_steps(vmesh, dev)
+    r0, r1 = ((r["inst"], r["cam"]) for r in ranks)
+    log(f"  (d) {SHARD_RANKS} gloo ranks: {time.perf_counter() - t_ranks:.1f}"
+        f" s from their start; "
+        f"checksums {r0} / {r1}; one process {single}")
+    check(np.allclose(r0, r1, rtol=1e-12, atol=0), "(d) ranks agree")
+    check(np.allclose(r0, single, rtol=1e-8, atol=0),
+          "(d) ranks equal the one-process mesh")
+    out["ranks"] = dict(checksums=[r0, r1], one_process=single)
+
+    # (e) More than one card: the same map on default_mesh() and through
+    # the bundle command.
+    n_dev = torch.cuda.device_count()
+    if n_dev > 1:
+        mesh = mesh_lib.default_mesh()
+        res, got = _sharded_run(
+            "default_mesh", lambda: dba.bundle_adjust_sharded(
+                big, dtype=np.float64, mesh=mesh), runs, counts)
+        _same_solve("(e) default_mesh", res, dense[np.float64], 1e-9, 1e-8)
+        path = os.path.join(WORK, "bundle_sharded")
+        shutil.rmtree(path, ignore_errors=True)
+        sb.write_dataset(path, big, {"bundle_distributed": "yes"})
+        from opensfm_tpu_torch.commands import command_runner, \
+            opensfm_commands
+
+        rep = command_runner(opensfm_commands, argv=["bundle", path])[0]
+        check(rep["route"].startswith("sharded_")
+              and rep["final_cost"] < rep["initial_cost"],
+              f"(e) the bundle command sharded over {n_dev} cards")
+        out["multi_card"] = dict(devices=n_dev, route=rep["route"])
+    else:
+        log(f"  (e) multi-card run did not happen: {n_dev} CUDA device "
+            f"visible (it needs a machine with more than one card)")
+        out["multi_card"] = None
+    out["runs"] = runs
+    return out, counts
+
+
 def check_assembly_variants():
     """Phase 13: each mode's kernel against its plain version on the card,
     at the profiler's 64 x 8,192 problem and on VARIANT_RAGGED, f32: every
@@ -4369,6 +4709,18 @@ def main() -> int:
     statistics["phase_s"] = time.perf_counter() - t0
     log(f"  done in {statistics['phase_s']:.1f} s")
 
+    log(f"phase 23: the sharded bundle on {SHARDS} shards of the card: "
+        f"the dense grid at 256 x 32768 x K=8 (f64, f32), the Schur and CG "
+        f"routes at {SHARD_SMALL[0]} x {SHARD_SMALL[1]}, {SHARD_RANKS} gloo "
+        f"ranks ({card})")
+    t0 = time.perf_counter()
+    sharded, sharded_counts = run_sharded(big, card)
+    sharded["phase_s"] = time.perf_counter() - t0
+    log(f"  done in {sharded['phase_s']:.1f} s; launches {sharded_counts}")
+    for name in ("fused_cost",) + DENSE_KERNELS:
+        check(sharded_counts[name] > 0, f"{name} launched by the sharded "
+              f"bundle")
+
     paths = {name: ("bundle command 256x32768xK=8, f64", counts)
              for name in ("fused_residual_jacobian", "fused_cost")}
     paths.update({name: ("bundle_adjust dense 64x8192, f64", dense_counts)
@@ -4455,6 +4807,8 @@ def main() -> int:
                    if k.split()[0] == ROW_KERNEL[name]}
             kernels[-1].update(launches_per_call=per_call_1_3_5[name],
                                ptxas=ptx)
+    for row in kernels:
+        row["launches_sharded"] = sharded_counts[row["name"]]
     print(json.dumps({"reconstruct": {k: v for k, v in recon.items()
                                       if k != "launches"}}), flush=True)
     print(json.dumps({"image_chain": {k: v for k, v in chain.items()
@@ -4473,6 +4827,7 @@ def main() -> int:
         for part, d in pose_graph.items()}}), flush=True)
     print(json.dumps({"statistics": {k: v for k, v in statistics.items()
                                      if k != "launches"}}), flush=True)
+    print(json.dumps({"sharded": sharded}), flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

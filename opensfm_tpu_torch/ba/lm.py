@@ -250,6 +250,12 @@ def problem_from_numpy(src) -> BAProblem:
 # ---------------------------------------------------------------------------
 
 
+def _transform_rig(inst6, rigcam6, X):
+    """World -> camera through the rig: Xc = R_rc (R_i X + t_i) + t_rc."""
+    Xi = rot.rotate(inst6[..., :3], X) + inst6[..., 3:6]
+    return rot.rotate(rigcam6[..., :3], Xi) + rigcam6[..., 3:6]
+
+
 def _origin(pose6):
     """Camera/instance center: -R^T t."""
     return -rot.rotate(-pose6[..., :3], pose6[..., 3:6])
@@ -985,11 +991,12 @@ def _fused_dense(points, ni, pmax, dense, kernels=True):
 
 
 def _build_reduced_system_fused(state, data, lam, loss, loss_threshold, ni,
-                                nr, nc, pmax):
+                                nr, nc, pmax, raw_blocks=False):
     """(S, b, back) from the fused assembly's raw outputs: reorder the
     [6 NI]^2 Schur product and the per-instance partials into the blocks of
     the reduced system, then add the priors, identity rows and damping
-    (`_assemble_S`)."""
+    (`_assemble_S`).  With `raw_blocks`, (blocks, back) before that
+    epilogue, as `_build_reduced_system`."""
     inst, rigcam, cam, points = state[:4]
     np_pts, dtype = points.shape[0], points.dtype
     pp_sw = _point_prior_sqrt_weight(points, data)
@@ -1031,17 +1038,18 @@ def _build_reduced_system_fused(state, data, lam, loss, loss_threshold, ni,
                    loss_threshold=loss_threshold),
         dense=True,
     )
-    S, b = _assemble_S(
-        state, data, lam, S_II, S_RR, S_IR, S_RC, S_IC, S_CC, b_i, b_r, b_c,
-        ni, nr, nc, pmax,
-    )
+    blocks = (S_II, S_RR, S_IR, S_RC, S_IC, S_CC, b_i, b_r, b_c)
+    if raw_blocks:
+        return blocks, back
+    S, b = _assemble_S(state, data, lam, *blocks, ni, nr, nc, pmax)
     return S, b, back
 
 
 def _build_reduced_system(state, data, lam, loss, loss_threshold, pmax, ni,
                           nr, nc, dense=False, ptype="perspective",
                           with_depth=False, rig_transform=False,
-                          rig_jac=False, canonical=True, generic=False):
+                          rig_jac=False, canonical=True, generic=False,
+                          raw_blocks=False):
     """Assemble the Schur-reduced camera system.
 
     Per-point structure comes from the padded (point, slot) layout: a free
@@ -1054,7 +1062,10 @@ def _build_reduced_system(state, data, lam, loss, loss_threshold, pmax, ni,
     camera families when a rig camera is optimized (`rig_jac`).
 
     Returns (S, b, back) where `back` carries what back-substitution
-    needs."""
+    needs.  With `raw_blocks`, (blocks, back) instead, blocks the families
+    (S_II, S_RR, S_IR, S_RC, S_IC, S_CC, b_i, b_r, b_c) before
+    `_assemble_S`'s epilogue: the sharded bundle sums them over its shards
+    first (`parallel.distributed_ba`)."""
     inst, rigcam, cam, points = state[:4]
     np_pts = points.shape[0]
     dtype = points.dtype
@@ -1062,7 +1073,8 @@ def _build_reduced_system(state, data, lam, loss, loss_threshold, pmax, ni,
         raise ValueError("the dense instance-slot layout is mono")
     if _fused_dense(points, ni, pmax, dense, not generic):
         return _build_reduced_system_fused(
-            state, data, lam, loss, loss_threshold, ni, nr, nc, pmax)
+            state, data, lam, loss, loss_threshold, ni, nr, nc, pmax,
+            raw_blocks=raw_blocks)
 
     r, Jc, Jp, _ = _residual_data(
         state, data, loss, loss_threshold, ptype=ptype, pmax=pmax,
@@ -1235,10 +1247,11 @@ def _build_reduced_system(state, data, lam, loss, loss_threshold, pmax, ni,
         obs_inst=data["obs_inst"], obs_rigcam=data["obs_rigcam"],
         obs_cam=data["obs_cam"], padded=padded, dense=dense,
     )
-    S, b = _assemble_S(
-        state, data, lam, S_II, S_RR, S_IR, S_RC, S_IC, S_CC, b_i, b_r, b_c,
-        ni, nr, nc, pmax, rig_jac=rig_jac,
-    )
+    blocks = (S_II, S_RR, S_IR, S_RC, S_IC, S_CC, b_i, b_r, b_c)
+    if raw_blocks:
+        return blocks, back
+    S, b = _assemble_S(state, data, lam, *blocks, ni, nr, nc, pmax,
+                       rig_jac=rig_jac)
     return S, b, back
 
 

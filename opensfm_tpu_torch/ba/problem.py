@@ -13,17 +13,19 @@ route its solve took.
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
-import torch
 
 from opensfm_tpu_torch import align as align_lib
 from opensfm_tpu_torch import multiview, pymap, resolve_device, types
 from opensfm_tpu_torch.ba.lm import BAProblem, BAResult, bundle_adjust
 from opensfm_tpu_torch.geometry import cameras as cam_lib
 from opensfm_tpu_torch.geometry.pose import Pose
+
+logger = logging.getLogger(__name__)
 
 # Per-parameter prior standard deviations, keyed by config name
 # (bundle_adjuster.cc camera priors; log-scale for focal/aspect ratio).
@@ -555,23 +557,46 @@ def _add_gcp(builder: _Builder, gcp, config, dominant_terms: int,
 
 def _solve_full_bundle(problem, config: Dict[str, Any], n_shots: int,
                        device=None):
-    """The single-device solve of a full-map bundle.
+    """Route a full-map bundle to the sharded solver when configured and
+    profitable, else to the single-device solver on `device`.
 
-    `bundle_distributed` (auto/yes) routes the reference to its mesh-sharded
-    solver when more than one device is visible and the map is large enough;
-    that solver is not ported yet, so the same condition raises here instead
-    of quietly solving on one device."""
+    `bundle_distributed: auto` takes the sharded solver once the map has
+    `bundle_distributed_min_shots` shots and the mesh (`default_mesh`:
+    every visible CUDA device) has more than one shard; `yes` takes it
+    whatever the map's size.  `bundle_distributed_solver` picks the solver
+    (auto, dense, schur, cg) and `bundle_distributed_cg_iters` CG's
+    iterations.  A problem the sharded solver cannot take (no observations,
+    or pose-graph rows with solver cg) is logged and solved on one
+    device, as the JAX package does."""
     device = resolve_device(device)
     max_iterations = int(config["bundle_max_iterations"])
     mode = str(config.get("bundle_distributed", "auto")).lower()
-    if mode in ("yes", "true", "1", "auto") and device.type == "cuda":
+    if mode in ("yes", "true", "1", "auto"):
+        from opensfm_tpu_torch.parallel import distributed_ba
+        from opensfm_tpu_torch.parallel import mesh as mesh_lib
+
+        mesh = mesh_lib.default_mesh(device)
         min_shots = int(config.get("bundle_distributed_min_shots", 100))
         wanted = mode != "auto" or n_shots >= min_shots
-        if torch.cuda.device_count() > 1 and wanted:
-            raise NotImplementedError(
-                "the multi-GPU bundle is not ported yet: set "
-                "bundle_distributed: no, or make one GPU visible"
-            )
+        if mesh.n_shards > 1 and wanted:
+            reason = distributed_ba.check_cg_compatible(problem)
+            solver_cfg = str(
+                config.get("bundle_distributed_solver", "auto")).lower()
+            # Pose-graph rows ride the assembled-Schur solver: only a
+            # pinned solver=cg (or no observations) falls back.
+            routable = reason is None or (
+                reason != "no observations" and solver_cfg != "cg")
+            if routable:
+                logger.info("Distributed BA over %d shards (%d shots)",
+                            mesh.n_shards, n_shots)
+                return distributed_ba.bundle_adjust_sharded(
+                    problem, max_iterations=max_iterations,
+                    cg_iters=int(config.get("bundle_distributed_cg_iters",
+                                            100)),
+                    solver=solver_cfg, mesh=mesh,
+                )
+            logger.info("Distributed BA unavailable (%s); using the "
+                        "single-device solver", reason)
     return bundle_adjust(problem, max_iterations=max_iterations, device=device)
 
 

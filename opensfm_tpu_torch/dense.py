@@ -539,6 +539,12 @@ def prune_depthmap(udata, reconstruction, neighbors, shot_id,
                                normals.cpu().numpy(), colors, labels)
 
 
+def py_int(a: np.ndarray) -> np.ndarray:
+    """Pixel coordinates rounded to the nearest integer (half to even, as
+    `np.round`) and clipped at 0."""
+    return np.clip(np.round(a).astype(int), 0, None)
+
+
 def merge_depthmaps(udata, reconstruction) -> int:
     """Merge the pruned depthmaps into merged.ply (dense.py:268-295);
     returns the number of points."""

@@ -34,6 +34,21 @@ class FeatureLoader:
             return None
         return data.load_features_mask(image, features_data.points[:, :2])
 
+    def load_points_colors_segmentations_instances(self, data, image: str):
+        """(points, colors, segmentation, instances) of an image's masked
+        features, the last two None without semantic data; None without
+        features."""
+        features_data = self._load_all_data_masked(data, image)
+        if features_data is None:
+            return None
+        semantic = features_data.semantic
+        return (
+            features_data.points,
+            features_data.colors,
+            semantic.segmentation if semantic else None,
+            semantic.instances if semantic else None,
+        )
+
     def load_all_data(
         self, data, image: str, masked: bool,
         segmentation_in_descriptor: bool = False,

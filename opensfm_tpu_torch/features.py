@@ -204,6 +204,13 @@ def normalize_features(
 # ---------------------------------------------------------------------------
 
 
+def build_flann_index(descriptors: np.ndarray, config: Dict[str, Any]):
+    """The matcher's "index" of an image's descriptors: the descriptor
+    matrix itself as contiguous float32 (the search is an exact top-2 over
+    all of them, not FLANN's approximate trees)."""
+    return np.ascontiguousarray(descriptors, dtype=np.float32)
+
+
 def area_weights(ssize: int, dsize: int) -> np.ndarray:
     """[dsize, ssize] weights of OpenCV's INTER_AREA along one axis
     (computeResizeAreaTab, imgproc/src/resize.cpp): each output pixel

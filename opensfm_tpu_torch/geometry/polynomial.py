@@ -14,6 +14,15 @@ import numpy as np
 import torch
 
 
+def polyval(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Evaluate sum coeffs[i] * x^(D-i) (highest coefficient first) by
+    Horner's rule: coeffs [..., D+1], x [..., K]."""
+    out = torch.zeros_like(x) + coeffs[..., 0:1]
+    for i in range(1, coeffs.shape[-1]):
+        out = out * x + coeffs[..., i:i + 1]
+    return out
+
+
 def _polyval_ri(cr, ci, xr, xi):
     """Horner evaluation with split re/im: coeffs [..., D+1], x [..., D]."""
     outr = torch.zeros_like(xr) + cr[..., 0:1]
@@ -68,6 +77,14 @@ def roots_ri(coeffs: torch.Tensor, iterations: int = 60
         stepi = (pi * qr - pr * qi) / mag2
         zr, zi = zr - stepr, zi - stepi
     return zr, zi
+
+
+def roots(coeffs: torch.Tensor, iterations: int = 60) -> torch.Tensor:
+    """All (complex) roots of polynomial(s), highest coefficient first:
+    coeffs [..., D+1] real -> [..., D] complex (`roots_ri` as one complex
+    tensor)."""
+    zr, zi = roots_ri(coeffs, iterations)
+    return torch.complex(zr, zi)
 
 
 def real_roots(coeffs: torch.Tensor, iterations: int = 60,

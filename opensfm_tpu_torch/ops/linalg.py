@@ -2,7 +2,8 @@
 
 Port of `opensfm_tpu.ops.linalg` for what the bundle and matching paths
 use: the SPD solve and inverse by Cholesky (the damped normal equations,
-the covariances), the small general solve by Gauss-Jordan (the 5-point
+the covariances), the QR solve (the sharded bundle's reduced system, which
+f32 roundoff can leave slightly indefinite), the small general solve by Gauss-Jordan (the 5-point
 solver) and the closed-form 3x3 inverse, determinant and solve (per-point
 Schur blocks, triangulation).
 """
@@ -26,6 +27,20 @@ def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     x = torch.cholesky_solve(b, L)
     bad = (info != 0)[..., None, None]
     x = torch.where(bad, torch.full_like(x, float("nan")), x)
+    return x[..., 0] if vec else x
+
+
+def solve_qr(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b by QR (batched), for symmetric systems that roundoff
+    may have left slightly indefinite (a Schur complement summed over
+    shards in f32), where a Cholesky factor would give NaN.  A: [..., N, N];
+    b: [..., N] or [..., N, K]."""
+    vec = b.dim() == A.dim() - 1
+    if vec:
+        b = b[..., None]
+    q, r = torch.linalg.qr(A)
+    y = torch.einsum("...ji,...jk->...ik", q, b.to(A.dtype))
+    x = torch.linalg.solve_triangular(r, y, upper=True)
     return x[..., 0] if vec else x
 
 

@@ -596,6 +596,40 @@ class TracksManager:
                     connectivity[key] = connectivity.get(key, 0) + 1
         return connectivity
 
+    @staticmethod
+    def merge_tracks_manager(managers: List["TracksManager"]
+                             ) -> "TracksManager":
+        """Union-find merge on shared (shot, feature id) observations
+        (tracks_manager.cc MergeTracksManager): tracks of any manager that
+        share an observation become one track, numbered from 0 in the
+        order of their first track."""
+        from opensfm_tpu_torch.unionfind import UnionFind
+
+        uf = UnionFind()
+        keys = []  # (manager index, track id)
+        by_feature: Dict[Tuple[str, int], List[int]] = {}
+        for mi, m in enumerate(managers):
+            for track_id, obs_map in m._shots_per_track.items():
+                idx = len(keys)
+                keys.append((mi, track_id))
+                uf.add(idx)
+                for shot_id, obs in obs_map.items():
+                    by_feature.setdefault((shot_id, obs.id), []).append(idx)
+        for members in by_feature.values():
+            for other in members[1:]:
+                uf.union(members[0], other)
+        clusters: Dict[int, List[int]] = {}
+        for idx in range(len(keys)):
+            clusters.setdefault(uf.find(idx), []).append(idx)
+        merged = TracksManager()
+        for new_id, members in enumerate(clusters.values()):
+            for idx in members:
+                mi, track_id = keys[idx]
+                for shot_id, obs in \
+                        managers[mi]._shots_per_track[track_id].items():
+                    merged.add_observation(shot_id, str(new_id), obs)
+        return merged
+
     # -- serialization -------------------------------------------------------
     def as_string(self) -> str:
         from opensfm_tpu_torch import native

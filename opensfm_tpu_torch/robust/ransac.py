@@ -26,7 +26,8 @@ samples; a caller can inject its own row indices ([n_chunks * k_chunk, S]
 for one problem, [B, n_chunks * k_chunk, S] for B).  The reference's
 batched absolute pose shrinks its chunk with B to fit TPU memory
 (ransac.py:362-374); the port keeps CHUNK, so a candidate's result does
-not depend on the size of its round.  The line family is not ported.
+not depend on the size of its round.  `make_ransac_core` builds a
+one-problem core from per-problem callables, the reference's interface.
 """
 
 from __future__ import annotations
@@ -132,6 +133,50 @@ def make_batched_core(minimal_fn: Callable, error_fn: Callable,
             best_model = torch.where(bm, refined, best_model)
             best_inliers = torch.where(better[:, None], i, best_inliers)
             best_cost = torch.where(better, c, best_cost)
+        return best_model, best_cost, best_inliers
+
+    return core
+
+
+def make_ransac_core(minimal_fn: Callable, error_fn: Callable,
+                     nonminimal_fn: Callable = None, min_samples: int = 2,
+                     lo_rounds: int = LO_ROUNDS):
+    """A one-problem LO-RANSAC core from per-problem callables (the
+    reference's `make_ransac_core`): `minimal_fn(d1[S, ...], d2[S, ...])`
+    -> (models [M, ...], valid [M]); `error_fn(model, d1[N, ...], d2[N,
+    ...])` -> [N]; `nonminimal_fn(model, d1, d2, mask)` -> model (None: no
+    local optimization).  They are batched over the hypotheses by
+    `torch.func.vmap`, so they must be vmappable.
+
+    core(idx [K, S] sample row indices, d1, d2, threshold, mask [N]) ->
+    (best model, its MSAC cost, its inliers [N]).  The reference's core
+    draws the K samples from a PRNG key; this one takes them, as every
+    family of the engine takes injected draws."""
+    vmap = torch.func.vmap
+
+    def core(idx, d1, d2, threshold, mask):
+        idx = torch.as_tensor(idx, dtype=torch.int64, device=d1.device)
+        if idx.shape[-1] != min_samples:
+            raise ValueError(f"samples of {min_samples} rows expected")
+        models, valid = vmap(minimal_fn)(d1[idx], d2[idx])
+        flat = models.reshape((-1,) + models.shape[2:])
+        flat_valid = valid.reshape(-1)
+        errors = vmap(lambda m: error_fn(m, d1, d2))(flat)  # [K * M, N]
+        cost = _msac_cost(errors, threshold, mask[None, :])
+        cost = torch.where(flat_valid, cost, torch.full_like(cost, _BIG))
+        best = torch.argmin(cost)
+        best_model, best_cost = flat[best], cost[best]
+        best_inliers = (torch.abs(errors[best]) <= threshold) & mask
+        if nonminimal_fn is not None:
+            for _ in range(lo_rounds):
+                refined = nonminimal_fn(best_model, d1, d2, best_inliers)
+                e = error_fn(refined, d1, d2)
+                c = _msac_cost(e, threshold, mask)
+                better = bool(c < best_cost) and bool(
+                    torch.isfinite(refined).all())
+                if better:
+                    best_model, best_cost = refined, c
+                    best_inliers = (torch.abs(e) <= threshold) & mask
         return best_model, best_cost, best_inliers
 
     return core
@@ -605,3 +650,58 @@ def ransac_homography(x1, x2, threshold: float, iterations: int = 1000,
     (replaces cv2.findHomography in the plane-based two-view path)."""
     return _run_one(_homography_core, x1, x2, float(threshold), iterations,
                     4, 1, seed, mask, device, samples)
+
+
+# ---------------------------------------------------------------------------
+# 2D line y = a x + b, point-line distance
+# ---------------------------------------------------------------------------
+
+
+def _line_minimal(p, _):
+    """The line through two points [..., 2, 2]: models [..., 1, 2] (a, b)
+    and valid [..., 1] (not vertical)."""
+    x1, y1 = p[..., 0, 0], p[..., 0, 1]
+    x2, y2 = p[..., 1, 0], p[..., 1, 1]
+    dx = x2 - x1
+    a = (y2 - y1) / torch.where(torch.abs(dx) < 1e-15,
+                                torch.full_like(dx, 1e-15), dx)
+    b = y1 - a * x1
+    return torch.stack([a, b], dim=-1)[..., None, :], \
+        (torch.abs(dx) > 1e-15)[..., None]
+
+
+def _line_error(ab, p, _):
+    """Distance of points p [..., 1, N, 2] to lines ab [..., B, 2]:
+    [..., B, N]."""
+    a, b = ab[..., 0:1], ab[..., 1:2]
+    x, y = p[..., 0, :, 0], p[..., 0, :, 1]
+    x = x[..., None, :]
+    y = y[..., None, :]
+    return torch.abs(a * x - y + b) / torch.sqrt(a * a + 1.0)
+
+
+def _line_nonminimal(ab, p, _, mask):
+    """Weighted least-squares y = a x + b over the rows of `mask`."""
+    w = mask.to(p.dtype)
+    n = torch.clamp_min(torch.sum(w, dim=-1), 1.0)
+    mx = torch.sum(w * p[..., 0], dim=-1) / n
+    my = torch.sum(w * p[..., 1], dim=-1) / n
+    cov = torch.sum(w * (p[..., 0] - mx[..., None])
+                    * (p[..., 1] - my[..., None]), dim=-1)
+    var = torch.clamp_min(
+        torch.sum(w * (p[..., 0] - mx[..., None]) ** 2, dim=-1), 1e-15)
+    a = cov / var
+    return torch.stack([a, my - a * mx], dim=-1)
+
+
+_line_core = make_batched_core(_line_minimal, _line_error, _line_nonminimal)
+
+
+def ransac_line(points, threshold: float, iterations: int = 1000,
+                seed: int = 42, mask=None, device=None,
+                samples=None) -> RansacResult:
+    """2D line RANSAC (line_model.h): model (a, b) of y = a x + b, the
+    point-line distance against `threshold`."""
+    points = np.asarray(points, dtype=np.float64)
+    return _run_one(_line_core, points, points, float(threshold),
+                    iterations, 2, 1, seed, mask, device, samples)

@@ -265,3 +265,44 @@ def all_common_tracks(
     tracks_manager: TracksManager, include_features: bool = True
 ) -> Dict[Tuple[str, str], TPairTracks]:
     return all_common_tracks_with_features(tracks_manager, include_features)
+
+
+def _networkx():
+    try:
+        import networkx
+    except ImportError as e:
+        raise ImportError("as_graph and as_weighted_graph need networkx, "
+                          "which is not installed") from e
+    return networkx
+
+
+def as_weighted_graph(tracks_manager: TracksManager):
+    """Images as nodes, edges weighted by their common track count (a
+    networkx graph; needs networkx)."""
+    graph = _networkx().Graph()
+    for shot_id in tracks_manager.get_shot_ids():
+        graph.add_node(shot_id, bipartite=0)
+    connectivity = tracks_manager.get_all_pairs_connectivity()
+    for (im1, im2), size in connectivity.items():
+        graph.add_edge(im1, im2, weight=size)
+    return graph
+
+
+def as_graph(tracks_manager: TracksManager):
+    """The bipartite images-tracks graph, each edge carrying its
+    observation (a networkx graph; needs networkx)."""
+    graph = _networkx().Graph()
+    for track_id in tracks_manager.get_track_ids():
+        graph.add_node(track_id, bipartite=1)
+    for shot_id in tracks_manager.get_shot_ids():
+        graph.add_node(shot_id, bipartite=0)
+    for track_id in tracks_manager.get_track_ids():
+        for im, obs in tracks_manager.get_track_observations(track_id).items():
+            graph.add_edge(
+                im, track_id,
+                feature=obs.point, feature_scale=obs.scale,
+                feature_id=obs.id, feature_color=obs.color,
+                feature_segmentation=obs.segmentation,
+                feature_instance=obs.instance,
+            )
+    return graph

@@ -32,6 +32,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def inputs():
     """The script's inputs as numpy float32 arrays: the JAX package lays

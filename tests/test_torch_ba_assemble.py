@@ -26,6 +26,15 @@ FLOATS = ("obs_uv", "obs_inv_sd", "gps_pos", "gps_inv_sd", "cam_prior",
           "point_prior", "point_prior_inv_sd")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _problem(ni, n_points, seed, loss):
     """A dense mono problem with fixed instances and points, point priors
     and ~10% dead slots (inv_sd = 0)."""

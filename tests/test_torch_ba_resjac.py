@@ -18,6 +18,15 @@ LOSSES = ["TrivialLoss", "SoftLOneLoss", "CauchyLoss", "HuberLoss",
 LAYOUTS = ["gather", "canonical", "dense"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(layout, seed=0):
     """(arrays, point_repeat, dense_inst) for one layout; ~10% of the slots
     padded (inv_sd = 0, uv = 0)."""

@@ -44,6 +44,15 @@ VOCABULARIES = ("bow_hahog_root_uchar_10000.npz",
                 "bow_hahog_root_uchar_1024.npz", "vlad_hahog_root_uchar_64.npz")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def assert_words_agree(x, centers, got, want, min_share=MIN_SHARE):
     """got == want but for near-ties; returns the share of equal ids."""
     got, want = np.asarray(got), np.asarray(want)

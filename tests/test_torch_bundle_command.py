@@ -8,6 +8,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 import synthetic_bundle as sb
 from opensfm_tpu.actions import bundle as ref_bundle
@@ -17,6 +18,15 @@ from opensfm_tpu_torch.commands import command_runner, opensfm_commands
 from opensfm_tpu_torch.dataset import DataSet
 from opensfm_tpu_torch.geometry import cameras as cl
 from opensfm_tpu_torch.geometry.pose import Pose
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _write_gcps(path, problem, seed=0):

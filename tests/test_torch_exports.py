@@ -43,6 +43,15 @@ COMMANDS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("exports") / "data")

@@ -20,6 +20,15 @@ from opensfm_tpu_torch.ops import linalg
 T = torch.as_tensor
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rotvecs(rng, n):
     r = rng.normal(size=(n, 3))
     r[0] = 0.0  # identity

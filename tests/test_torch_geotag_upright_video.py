@@ -26,6 +26,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from opensfm_tpu import geotag_from_gpx as ref_gpx
 from opensfm_tpu import upright as ref_upright
@@ -43,6 +44,15 @@ TRACK = [(0, 47.00000, 6.00000, 410.0), (1, 47.00004, 6.00003, 410.5),
          (2, 47.00009, 6.00005, 411.5), (3, 47.00013, 6.00009, None),
          (10, 47.00041, 6.00030, 415.0), (11, 47.00045, 6.00031, 415.25),
          (12, 47.00050, 6.00036, 414.0)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def write_gpx(path, track=TRACK, split=4):

@@ -52,6 +52,15 @@ sys.exit(1 if bad or missing or built or len(names) < 20 else 0)
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_port_imports_neither_jax_nor_reference():
     # A fresh interpreter: this test process already imported JAX.
     proc = subprocess.run(

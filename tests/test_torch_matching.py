@@ -25,6 +25,15 @@ from opensfm_tpu_torch.robust import ransac
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def jax_samples(n, iterations, s, seed=42, mask=None):
     """The JAX package's draws for a RANSAC run over n rows, in the port's
     injected layout [n_chunks * k_chunk, s]."""

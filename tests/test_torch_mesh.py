@@ -11,6 +11,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from opensfm_tpu import mesh as ref_mesh
 from opensfm_tpu.actions import mesh as ref_action
@@ -20,6 +21,15 @@ from opensfm_tpu_torch.commands import command_runner, opensfm_commands
 from test_torch_undistort import _maps, brown_views  # noqa: F401
 
 VERTEX_TOL = 1e-12
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("ptype", ["brown", "spherical"])

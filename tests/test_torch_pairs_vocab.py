@@ -11,6 +11,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 import synthetic_bundle as sb
 from opensfm_tpu import pairs_selection as ref_pairs
@@ -28,6 +29,15 @@ CASES = {
     "bow_vlad_gps": dict(matching_bow_neighbors=1, matching_vlad_neighbors=1,
                          matching_gps_neighbors=2),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -6,6 +6,7 @@ packages), and the port's re-exports checked against the JAX package's
 names."""
 
 import pytest
+import torch
 
 import test_pysfm as ref_cases
 from opensfm_tpu import pysfm as ref_pysfm
@@ -17,6 +18,15 @@ from opensfm_tpu_torch.geometry.pose import Pose
 CASES = ["test_add_remove_connections",
          "test_realign_maps_shifts_shots_and_points",
          "test_realign_maps_respects_reference_offset"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -30,6 +30,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from chip_smoke import read_pdf
 from opensfm_tpu import report as ref_report
@@ -43,6 +44,15 @@ from test_torch_synthetic_data import scenes
 
 HELPERS = ("_make_section", "_make_subsection", "_make_table",
             "_make_centered_image", "add_page_break")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def write_scene_dataset(root):

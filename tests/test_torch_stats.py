@@ -12,6 +12,7 @@ import copy
 
 import numpy as np
 import pytest
+import torch
 
 from opensfm_tpu import stats as ref_stats
 from opensfm_tpu import types as ref_types
@@ -27,6 +28,15 @@ from test_torch_synthetic_data import scenes
 # that cancels to 7.7e-3 m is 2.0e-12 relative off.  Measured at most
 # 3.1e-14 this way (seed 42, with the GCPs).
 REL_TOL = 1e-12
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

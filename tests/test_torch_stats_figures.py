@@ -25,6 +25,7 @@ import matplotlib.axes  # noqa: E402
 import matplotlib.pyplot as plt  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+import torch  # noqa: E402
 
 from opensfm_tpu import stats as ref_stats  # noqa: E402
 from opensfm_tpu.synthetic_data import synthetic_dataset as ref_sd  # noqa: E402,E501
@@ -34,6 +35,15 @@ from test_torch_synthetic_data import scenes  # noqa: E402
 
 SIZES = {"matchgraph.png": (1800, 1800), "topview.png": (1800, 1800),
          "heatmap_1.png": (1200, 900), "residuals_1.png": (1800, 1500)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _prepared(package):

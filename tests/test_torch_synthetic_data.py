@@ -22,6 +22,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from opensfm_tpu import geo as ref_geo
 from opensfm_tpu.synthetic_data import synthetic_dataset as ref_sd
@@ -44,6 +45,15 @@ COMPARE_TOL = 1e-10
 
 SEEDS = (42, 7)
 KINDS = ("circle", "cube", "rig")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _inputs(package, kind, seed):

@@ -25,6 +25,15 @@ N, M, D = TILE_N, 2 * TILE_M, 128  # tests/test_pallas_kernels.py's shapes
 N2 = M - 37
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(kind, seed=7, n=N, m=M, d=D):
     rng = np.random.default_rng(seed)
     if kind == "uint8":

@@ -24,6 +24,15 @@ CPU = torch.device("cpu")
 VLAD_TOL = 1e-9
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_vlad_distances_order():
     im = "im1"
     other_ims = ["im2", "im3"]
