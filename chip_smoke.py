@@ -216,13 +216,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
     (e) With more than one card, the map on `default_mesh()` and through
     the `bundle` command; on one card the phase says that this run did
     not happen.  Each run's seconds, trials and peak device memory.
+24. the GCP annotation tool (`opensfm_tpu_torch.annotation`) on phase 22's
+    circle as reconstructed on the card, split by shot id into two
+    sequences of 10 shots (`write_annotation_dataset`), the second moved by
+    ANNOT_SIMILARITY: every GCP clear of the triangulation's thresholds,
+    the similarity recovered from the common GCPs within the ANNOT_ bounds,
+    `run_ba.align` in rigid, flex and full on the card (seconds, GCP RMS
+    within ANNOT_MAX_RMS, the bundle's route with its rows launched, full's
+    covariances valid), full on the CPU (card vs CPU within ANNOT_REL) and
+    one POST /analyze full through the tool's server.
 Then the {"reconstruct": {...}}, {"image_chain": {...}},
 {"merge_and_algorithms": {...}}, {"models": {...}}, {"rig_chain": {...}},
 {"akaze_chain": {...}}, {"vocab_chain": {...}}, {"pose_graph": {...}},
-{"statistics": {...}} and {"sharded": {...}} JSON lines, the card's name
-and power limit, one {"kernels": [...]} JSON line (each row's
-`launches_sharded` read over phase 23's sharded runs), and as the last
-line {"ok": true, "device": {...}}.
+{"statistics": {...}}, {"sharded": {...}} and {"annotation": {...}} JSON
+lines, the card's name and power limit, one {"kernels": [...]} JSON line
+(each row's `launches_sharded` read over phase 23's sharded runs, each BA
+row's `launches_annotation` over phase 24's three modes on the card), and
+as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -3960,6 +3970,8 @@ def run_statistics(dev="cuda"):
         f"{out['export_report_s']:.2f} s, {out['report_pages']} pages; "
         f"stats.json card vs CPU gap {out['stats_gap']:.3g}; "
         f"{len(figures)} figures bit-equal; {json.dumps(out['phase15_stats'])}")
+    # Phase 24's input: the circle as reconstructed on the card.
+    out["circle_map"] = (rec, inp.tracks_manager, list(inp.gcps.values()))
     return out
 
 
@@ -4284,6 +4296,306 @@ def _run_sharded(big, dev, vmesh, out, counts, runs, procs, t_ranks):
         out["multi_card"] = None
     out["runs"] = runs
     return out, counts
+
+
+# Phase 24: the GCP annotation tool (`opensfm_tpu_torch.annotation`) on
+# phase 22's circle as reconstructed on the card.  Its shots, sorted by id,
+# go to two sequences in turn (two passes over one street, as the tool
+# aligns them: disjoint shots, common GCPs), each with the points that two
+# of its shots observe; the second sequence is moved by ANNOT_SIMILARITY.
+# Bounds written before the first card run: 3.5 times the larger CPU
+# reading of the two packages (the rule of phases 15 and 21), from the same
+# steps on the circle reconstructed by the port on the CPU (CIRCLE_CONFIG;
+# 20 shots, 4,896 points; sequences of 3,468 and 3,201 points, 7 common
+# GCPs).  The readings, port = JAX package to 1e-11: GCP RMS rigid
+# 8.1759e-4, flex and full 7.0620e-4; scale error 9.659e-4, rotation
+# 0.0849 deg, shift 0.1001 m.  ANNOT_REL is the CPU tests' parity
+# tolerance.
+ANNOT_SIMILARITY = (1.3, 20.0, (5.0, 0.0, 0.0))  # scale, yaw (deg), shift (m)
+ANNOT_MODES = ("rigid", "flex", "full")
+ANNOT_REL = 1e-8  # full, card vs CPU: poses, points, covariances, median std
+ANNOT_MAX_RMS = {"rigid": 2.862e-3, "flex": 2.472e-3,
+                 "full": 2.472e-3}  # GCP reprojection RMS by mode
+ANNOT_MAX_SCALE_ERR = 3.381e-3  # |s / s_true - 1| of the recovered similarity
+ANNOT_MAX_ROT_DEG = 0.2972  # its rotation's angle from the true inverse's
+ANNOT_MAX_SHIFT = 0.3504  # its translation's distance from the true one (m)
+ANNOT_MIN_COMMON = 3  # GCPs both sequences triangulate
+# multiview.triangulate_gcp's thresholds: a GCP is triangulated or not with
+# at least GCP_MARGIN of room on each, so no device's rounding flips it.
+GCP_MIN_RAY_DEG, GCP_MAX_REPROJ, GCP_MARGIN = 1.0, 0.02, 0.1
+ROUTE_ROWS = {"canonical": ("fused_residual_jacobian", "fused_cost"),
+              "dense": ("fused_residual_jacobian", "fused_cost_dense"),
+              "fused_dense": DENSE_KERNELS}
+
+
+def annotation_similarity():
+    """(s, A, b) of ANNOT_SIMILARITY: y = s A x + b, A a yaw."""
+    s, yaw, shift = ANNOT_SIMILARITY
+    c, si = np.cos(np.radians(yaw)), np.sin(np.radians(yaw))
+    A = np.array([[c, -si, 0.0], [si, c, 0.0], [0.0, 0.0, 1.0]])
+    return s, A, np.asarray(shift, dtype=np.float64)
+
+
+def write_annotation_dataset(root, rec, tracks_manager, gcps, config=None,
+                             point_stride=1):
+    """Write `rec` as the annotation tool's two sequences under `root`:
+    shots sorted by id go to sequence a and b in turn; each holds every
+    `point_stride`-th of the points (by id) that two of its shots observe
+    in `tracks_manager`; b is moved by ANNOT_SIMILARITY.  With them: the
+    tracks, `gcps`, the camera models, the reference, `config` and an empty
+    file a shot under images/.  Returns the two lists of shot ids."""
+    from opensfm_tpu_torch import io, types
+    from opensfm_tpu_torch.align import apply_similarity
+    from opensfm_tpu_torch.dataset import DataSet
+
+    ids = sorted(rec.shots)
+    halves = []
+    for shot_ids in (ids[0::2], ids[1::2]):
+        half = types.Reconstruction()
+        half.reference = rec.reference
+        seen = {}
+        for sid in shot_ids:
+            half.add_shot(rec.shots[sid])
+            for tid in tracks_manager.get_shot_observations(sid):
+                seen[tid] = seen.get(tid, 0) + 1
+        keep = [p for p in sorted(rec.points) if seen.get(p, 0) >= 2]
+        for pid in keep[::point_stride]:
+            point = half.create_point(pid, rec.points[pid].coordinates.copy())
+            point.color = rec.points[pid].color
+        halves.append(half)
+    apply_similarity(halves[1], *annotation_similarity())
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "images"))
+    for sid in ids:
+        open(os.path.join(root, "images", sid), "wb").close()
+    with open(os.path.join(root, "config.yaml"), "w") as f:
+        f.write("".join(f"{k}: {v}\n" for k, v in (config or {}).items())
+                or "{}\n")
+    data = DataSet(root)
+    data.save_camera_models(rec.cameras)
+    data.save_tracks_manager(tracks_manager)
+    lla = rec.reference
+    data.save_reference_lla({"latitude": lla.lat, "longitude": lla.lon,
+                             "altitude": lla.alt})
+    data.save_reconstruction(halves)
+    with open(os.path.join(root, "ground_control_points.json"), "w") as f:
+        io.write_ground_control_points(list(gcps), f)
+    return ids[0::2], ids[1::2]
+
+
+def gcp_margins(gcps, shots):
+    """{gcp id: None below two rays, else (largest angle between two rays
+    in degrees, largest angle from a ray to the midpoint in radians)}: the
+    two quantities `multiview.triangulate_gcp` holds against its
+    thresholds, in NumPy f64 on the host."""
+    out = {}
+    for gcp in gcps:
+        origins, rays = [], []
+        for obs in gcp.observations:
+            shot = shots.get(obs.shot_id)
+            if shot is None:
+                continue
+            rays.append(shot.pose.get_rotation_matrix().T
+                        @ shot.camera.bearing(obs.projection))
+            origins.append(shot.pose.get_origin())
+        if len(rays) < 2:
+            out[gcp.id] = None
+            continue
+        o = np.asarray(origins)
+        b = np.asarray(rays) / np.linalg.norm(rays, axis=1, keepdims=True)
+        proj = np.eye(3)[None] - b[:, :, None] * b[:, None, :]
+        x = np.linalg.solve(proj.sum(0), np.einsum("kij,kj->i", proj, o))
+        cos = np.clip(b @ b.T, -1.0, 1.0)
+        to_x = (x - o) / np.linalg.norm(x - o, axis=1, keepdims=True)
+        err = np.arccos(np.clip(np.sum(to_x * b, axis=1), -1.0, 1.0))
+        out[gcp.id] = (float(np.degrees(np.arccos(cos.min()))),
+                       float(err.max()))
+    return out
+
+
+def gcp_margin(margins) -> float:
+    """The smallest relative room of any GCP of `margins` (gcp_margins) from
+    either threshold; inf where no GCP has two rays."""
+    room = [min(abs(m[0] / GCP_MIN_RAY_DEG - 1.0),
+                abs(m[1] / GCP_MAX_REPROJ - 1.0))
+            for m in margins.values() if m is not None]
+    return min(room, default=float("inf"))
+
+
+def _annotation_state(rec):
+    """Poses, points and shot covariances of a merged map, by id."""
+    ids = sorted(rec.shots)
+    cov = [rec.shots[s].covariance for s in ids]
+    return dict(
+        poses=np.array([np.r_[rec.shots[s].pose.rotation,
+                              rec.shots[s].pose.translation] for s in ids]),
+        points=np.array([rec.points[p].coordinates
+                         for p in sorted(rec.points)]),
+        covariances=(np.array(cov) if all(c is not None for c in cov)
+                     else None))
+
+
+def _relgap(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def _post(port, route, body):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{route}", data=json.dumps(body).encode(),
+        method="POST")
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+def run_annotation(circle, dev="cuda"):
+    """Phase 24.  Phase 22's circle as two sequences
+    (`write_annotation_dataset`): every GCP at least GCP_MARGIN from the
+    triangulation's thresholds in each sequence; the similarity recovered
+    from the GCPs within the ANNOT_ bounds of the true inverse; the port's
+    `run_ba.align` in rigid, flex and full on `dev` (seconds, launches, the
+    bundle's route, whose rows must launch; GCP RMS within ANNOT_MAX_RMS;
+    full's covariances valid); full again on the CPU (poses, points,
+    covariances and median_shot_std within ANNOT_REL); and one POST
+    /analyze full through the tool's server on `dev`."""
+    import threading
+
+    from opensfm_tpu_torch.annotation import main as tool
+    from opensfm_tpu_torch.annotation import run_ba
+    from opensfm_tpu_torch.dataset import DataSet
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+
+    rec, tracks_manager, gcps = circle
+    out = {}
+    paths = {d: os.path.join(WORK, f"annotation_{d}") for d in ("card", "cpu")}
+    t0 = time.perf_counter()
+    ids = write_annotation_dataset(paths["card"], rec, tracks_manager, gcps)
+    shutil.rmtree(paths["cpu"], ignore_errors=True)
+    shutil.copytree(paths["card"], paths["cpu"])
+    data = DataSet(paths["card"])
+    halves = data.load_reconstruction()
+    gcp_list = data.load_ground_control_points()
+    out["write_s"] = time.perf_counter() - t0
+    out["sequences"] = [[len(h.shots), len(h.points)] for h in halves]
+    margins = [gcp_margins(gcp_list, h.shots) for h in halves]
+    out["gcp_margin"] = min(gcp_margin(m) for m in margins)
+    check(out["gcp_margin"] >= GCP_MARGIN, f"every GCP {out['gcp_margin']:.3g}"
+          f" >= {GCP_MARGIN} from the triangulation's thresholds")
+
+    # The similarity that brings b back onto a.
+    coords = [run_ba.triangulate_gcps(gcp_list, h, device=dev)
+              for h in halves]
+    out["common_gcps"] = sum(a is not None and b is not None
+                             for a, b in zip(*coords))
+    s, A, b = run_ba.find_alignment(*coords, device=dev)
+    s0, A0, b0 = annotation_similarity()
+    cos = (np.trace(A @ A0) - 1.0) / 2.0  # A against the inverse, A0^T
+    out["similarity"] = dict(
+        scale_err=abs(s * s0 - 1.0),
+        rot_err_deg=float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))),
+        shift_err=float(np.linalg.norm(b - (-A0.T @ b0 / s0))))
+    check(out["common_gcps"] >= ANNOT_MIN_COMMON,
+          f"{out['common_gcps']} common GCPs >= {ANNOT_MIN_COMMON}")
+    for key, bound in (("scale_err", ANNOT_MAX_SCALE_ERR),
+                       ("rot_err_deg", ANNOT_MAX_ROT_DEG),
+                       ("shift_err", ANNOT_MAX_SHIFT)):
+        check(out["similarity"][key] <= bound, f"recovered similarity "
+              f"{key} {out['similarity'][key]:.3g} <= {bound}")
+
+    # The three modes on `dev`, then full on the CPU.
+    solves, bundled = [], []
+    bundle_adjust, with_fixed = run_ba.bundle_adjust, run_ba.bundle_with_fixed_images
+
+    def solve(*args, **kw):
+        result = bundle_adjust(*args, **kw)
+        solves.append(dict(route=result.route, iterations=result.iterations,
+                           cost=[result.initial_cost, result.final_cost]))
+        return result
+
+    def fixed(reconstruction, *args, **kw):
+        valid = with_fixed(reconstruction, *args, **kw)
+        bundled.append(_annotation_state(reconstruction))
+        return valid
+
+    run_ba.bundle_adjust, run_ba.bundle_with_fixed_images = solve, fixed
+    try:
+        out["modes"], counts = {}, {name: 0 for name in BA_KERNELS}
+        for mode in ANNOT_MODES:
+            reset_launches()
+            t0 = time.perf_counter()
+            report = run_ba.align(paths["card"], mode=mode, device=dev)
+            sync()
+            seconds = time.perf_counter() - t0
+            n = launches()
+            for name in BA_KERNELS:
+                counts[name] += n[name]
+            out["modes"][mode] = dict(
+                s=seconds, gcp_rms=report["gcp_reprojection_rms"],
+                launches={k: n[k] for k in BA_KERNELS},
+                **({} if mode == "rigid" else dict(
+                    solve=solves[-1],
+                    covariance_valid=report["covariance_valid"],
+                    median_shot_std=report["median_shot_std"],
+                    accepted=report["accepted"])))
+            log(f"  {mode} on {dev}: {seconds:.2f} s; "
+                f"{json.dumps(out['modes'][mode])}")
+            check(report["gcp_reprojection_rms"] <= ANNOT_MAX_RMS[mode],
+                  f"{mode}: GCP RMS {report['gcp_reprojection_rms']:.4g} <= "
+                  f"{ANNOT_MAX_RMS[mode]}")
+        full = report
+        check(full["covariance_valid"], "full: covariances valid")
+        t0 = time.perf_counter()
+        cpu = run_ba.align(paths["cpu"], mode="full", device="cpu")
+        out["full_cpu_s"] = time.perf_counter() - t0
+    finally:
+        run_ba.bundle_adjust = bundle_adjust
+        run_ba.bundle_with_fixed_images = with_fixed
+    out["routes"] = sorted({x["route"] for x in solves})
+    out["launches"] = counts
+    for route in out["routes"]:
+        for name in ROUTE_ROWS.get(route, ()):
+            check(counts[name] > 0, f"{name} launched on the {route} route")
+    check(solves[-1]["iterations"] == solves[-2]["iterations"],
+          "full on the card and the CPU: same iterations")
+    card, host = bundled[-2], bundled[-1]
+    out["card_vs_cpu"] = {k: _relgap(card[k], host[k])
+                          for k in ("poses", "points", "covariances")}
+    out["card_vs_cpu"]["median_shot_std"] = _relgap(
+        full["median_shot_std"], cpu["median_shot_std"])
+    log(f"  full on the CPU: {out['full_cpu_s']:.2f} s; card vs CPU "
+        f"{json.dumps(out['card_vs_cpu'])}")
+    for key, gap in out["card_vs_cpu"].items():
+        check(gap <= ANNOT_REL, f"full card vs CPU: {key} {gap:.3g} <= "
+              f"{ANNOT_REL}")
+    check(full["accepted"] == cpu["accepted"], "full: the same verdict")
+
+    # One analysis through the tool's server.
+    server = tool.make_server(paths["card"], 0, dev, host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        served = _post(server.server_address[1], "/analyze", {"mode": "full"})
+        out["server_full_s"] = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    out["server_gap"] = _relgap(served["median_shot_std"],
+                                full["median_shot_std"])
+    check(served["accepted"] == full["accepted"]
+          and out["server_gap"] <= ANNOT_REL,
+          f"POST /analyze full = align full ({out['server_gap']:.3g})")
+    log(f"  {len(ids[0])} + {len(ids[1])} shots, {out['common_gcps']} common "
+        f"GCPs, margin {out['gcp_margin']:.3g}; similarity "
+        f"{json.dumps(out['similarity'])}; routes {out['routes']}, launches "
+        f"{counts}; POST /analyze full {out['server_full_s']:.2f} s")
+    return out
 
 
 def check_assembly_variants():
@@ -4721,6 +5033,15 @@ def main() -> int:
         check(sharded_counts[name] > 0, f"{name} launched by the sharded "
               f"bundle")
 
+    log(f"phase 24: the GCP annotation tool on phase 22's circle as two "
+        f"sequences of 10 shots: run_ba.align rigid, flex and full on the "
+        f"card, full on the CPU, POST /analyze ({card})")
+    t0 = time.perf_counter()
+    annotation = run_annotation(statistics.pop("circle_map"))
+    annotation["phase_s"] = time.perf_counter() - t0
+    log(f"  done in {annotation['phase_s']:.1f} s; routes "
+        f"{annotation['routes']}, launches {annotation['launches']}")
+
     paths = {name: ("bundle command 256x32768xK=8, f64", counts)
              for name in ("fused_residual_jacobian", "fused_cost")}
     paths.update({name: ("bundle_adjust dense 64x8192, f64", dense_counts)
@@ -4799,6 +5120,7 @@ def main() -> int:
             pose_graph["submodels"]["launches"][name]
         kernels[-1]["launches_facade"] = pose_graph["facade"]["launches"][name]
         kernels[-1]["launches_synthetic"] = statistics["launches"][name]
+        kernels[-1]["launches_annotation"] = annotation["launches"][name]
         if name == "fused_schur_assembly":
             kernels[-1].update(sub_kernel_ms=schur_split,
                                product_step_torch_mm_ms=product_mm_ms)
@@ -4828,6 +5150,8 @@ def main() -> int:
     print(json.dumps({"statistics": {k: v for k, v in statistics.items()
                                      if k != "launches"}}), flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)
+    print(json.dumps({"annotation": {k: v for k, v in annotation.items()
+                                     if k != "launches"}}), flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
